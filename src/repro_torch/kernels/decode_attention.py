@@ -1,0 +1,131 @@
+"""K2 and K3: one query token against a dense or a paged KV cache — the
+Hopper kernels' wrappers and their plain versions.
+
+K2 replaces the Pallas TPU kernel ``repro/kernels/decode_attention.py::
+decode_attention`` (body ``_decode_kernel``); K3 replaces
+``paged_decode_attention`` (body ``_paged_decode_kernel``). Both are
+``csrc/decode_attention.cu``, one template with two addressing modes; its
+header note says what bounds them and what this first version leaves out.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels import ref as _ref
+from repro_torch.kernels.flash_attention import DTYPE_CODES, check_inputs
+
+PAGED_BLOCK_K = 128    # K3's shared-memory tile: any pool block size works
+
+
+def decode_attention_ref(q, k_cache, v_cache, kv_len, *,
+                         window: Optional[int] = None,
+                         softcap: Optional[float] = None) -> torch.Tensor:
+    """The plain version of K2."""
+    return _ref.decode_attention(q, k_cache, v_cache, kv_len=kv_len,
+                                 window=window, softcap=softcap)
+
+
+def paged_decode_attention_ref(q, k_pool, v_pool, block_tables, kv_len, *,
+                               window: Optional[int] = None,
+                               softcap: Optional[float] = None) -> torch.Tensor:
+    """The plain version of K3."""
+    return _ref.paged_decode_attention(q, k_pool, v_pool, block_tables,
+                                       kv_len=kv_len, window=window,
+                                       softcap=softcap)
+
+
+def _check_common(name, q, kv_len, window, softcap, block_k) -> None:
+    if q.dim() != 4 or q.shape[2] != 1:
+        raise ValueError(f"{name}: q must be (B, Hq, 1, D), got {tuple(q.shape)}")
+    if kv_len.dtype != torch.int32 or kv_len.shape != (q.shape[0],) \
+            or kv_len.device != q.device or not kv_len.is_contiguous():
+        raise ValueError(f"{name}: kv_len must be a contiguous ({q.shape[0]},) "
+                         f"int32 tensor on {q.device}")
+    if window is not None and window < 1:
+        raise ValueError(f"{name}: window must be >= 1, got {window}")
+    if softcap is not None and softcap <= 0:
+        raise ValueError(f"{name}: softcap must be > 0, got {softcap}")
+    if block_k % 32 or not 32 <= block_k <= 128:
+        raise ValueError(f"{name}: block_k {block_k} not a multiple of 32 "
+                         f"in [32, 128]")
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, kv_len: torch.Tensor, *,
+                     window: Optional[int] = None,
+                     softcap: Optional[float] = None,
+                     block_k: int = 128) -> torch.Tensor:
+    """K2. q: (B, Hq, 1, D); caches (B, Hkv, Smax, D); kv_len (B,) int32,
+    the new token's K/V already written at kv_len-1. Returns (B, Hq, 1, D).
+    CUDA tensors launch the kernel (or raise); CPU tensors take the plain
+    version."""
+    if q.device.type == "cpu":
+        return decode_attention_ref(q, k_cache, v_cache, kv_len,
+                                    window=window, softcap=softcap)
+    check_inputs("decode_attention", q, k_cache, v_cache)
+    _check_common("decode_attention", q, kv_len, window, softcap, block_k)
+    B, Hq, _, D = q.shape
+    Bc, Hkv, Smax, Dc = k_cache.shape
+    if v_cache.shape != k_cache.shape or Bc != B or Dc != D or Hq % Hkv:
+        raise ValueError(f"decode_attention: shapes q {tuple(q.shape)}, "
+                         f"cache {tuple(k_cache.shape)}")
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    code = _build.library().repro_decode_attention(
+        DTYPE_CODES[q.dtype], D, q.data_ptr(), k_cache.data_ptr(),
+        v_cache.data_ptr(), kv_len.data_ptr(), out.data_ptr(), B, Hq, Hkv,
+        Smax, window or 0, float(softcap or 0.0), float(D ** -0.5), block_k,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(code, "decode_attention")
+    decode_attention.launches += 1
+    return out
+
+
+def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
+                           v_pool: torch.Tensor, block_tables: torch.Tensor,
+                           kv_len: torch.Tensor, *,
+                           window: Optional[int] = None,
+                           softcap: Optional[float] = None) -> torch.Tensor:
+    """K3. q: (B, Hq, 1, D); pools (num_blocks, Hkv, block_size, D);
+    block_tables (B, max_blocks) int32 whose every entry is a valid pool
+    index (dead entries point at the null block 0); kv_len (B,) int32.
+    CUDA tensors launch the kernel (or raise); CPU tensors take the plain
+    version."""
+    if q.device.type == "cpu":
+        return paged_decode_attention_ref(q, k_pool, v_pool, block_tables,
+                                          kv_len, window=window,
+                                          softcap=softcap)
+    check_inputs("paged_decode_attention", q, k_pool, v_pool)
+    _check_common("paged_decode_attention", q, kv_len, window, softcap,
+                  PAGED_BLOCK_K)
+    B, Hq, _, D = q.shape
+    _, Hkv, bs, Dp = k_pool.shape
+    if v_pool.shape != k_pool.shape or Dp != D or Hq % Hkv:
+        raise ValueError(f"paged_decode_attention: shapes q {tuple(q.shape)}, "
+                         f"pool {tuple(k_pool.shape)}")
+    if block_tables.dtype != torch.int32 or block_tables.dim() != 2 \
+            or block_tables.shape[0] != B or block_tables.device != q.device \
+            or not block_tables.is_contiguous():
+        raise ValueError("paged_decode_attention: block_tables must be a "
+                         f"contiguous ({B}, max_blocks) int32 tensor on "
+                         f"{q.device}")
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    code = _build.library().repro_paged_decode_attention(
+        DTYPE_CODES[q.dtype], D, q.data_ptr(), k_pool.data_ptr(),
+        v_pool.data_ptr(), block_tables.data_ptr(), kv_len.data_ptr(),
+        out.data_ptr(), B, Hq, Hkv, bs, block_tables.shape[1], window or 0,
+        float(softcap or 0.0), float(D ** -0.5), PAGED_BLOCK_K,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(code, "paged_decode_attention")
+    paged_decode_attention.launches += 1
+    return out
+
+
+decode_attention.launches = 0
+paged_decode_attention.launches = 0

@@ -1,0 +1,106 @@
+"""K1: blockwise (flash) attention for prefill — the Hopper kernel's wrapper
+and its plain version.
+
+Replaces the Pallas TPU kernel ``repro/kernels/flash_attention.py::
+flash_attention`` (body ``_flash_kernel``). The CUDA source is
+``csrc/flash_attention.cu``; its header note says how the TPU grid's
+sequential K axis became a loop inside one block, and what bounds it.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels import ref as _ref
+
+HEAD_DIMS = (64, 128)
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+TILE_SIZES = (16, 32, 64, 128)     # block_q; block_k is a multiple of 32
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True, window: Optional[int] = None,
+                        softcap: Optional[float] = None, q_offset: int = 0,
+                        sk_valid: Optional[int] = None) -> torch.Tensor:
+    """The plain version: the reference attention, keys past ``sk_valid``
+    masked. Rows with no valid key give mean(V) here and 0 in the kernel."""
+    kv_len = None
+    if sk_valid is not None and sk_valid < k.shape[2]:
+        kv_len = torch.full((q.shape[0],), sk_valid, dtype=torch.int32,
+                            device=q.device)
+    return _ref.mha_attention(q, k, v, causal=causal, window=window,
+                              softcap=softcap, q_offset=q_offset,
+                              kv_len=kv_len)
+
+
+def check_inputs(name: str, *tensors: torch.Tensor) -> None:
+    """What every attention kernel here takes: CUDA, float32 or bfloat16,
+    one dtype, contiguous and 16-byte aligned (the kernels read 16-byte
+    vectors), head dim 64 or 128."""
+    dev, dtype = tensors[0].device, tensors[0].dtype
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: kernel inputs must be CUDA tensors, got {dev}")
+    if dtype not in DTYPE_CODES:
+        raise ValueError(f"{name}: dtype {dtype} not supported "
+                         f"(float32 or bfloat16)")
+    for t in tensors:
+        if t.device != dev or t.dtype != dtype:
+            raise ValueError(f"{name}: all inputs must share device and dtype")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: inputs must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: inputs must be 16-byte aligned")
+    if tensors[0].shape[-1] not in HEAD_DIMS:
+        raise ValueError(f"{name}: head dim {tensors[0].shape[-1]} not in "
+                         f"{HEAD_DIMS}")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: Optional[int] = None,
+                    softcap: Optional[float] = None, q_offset: int = 0,
+                    sk_valid: Optional[int] = None, block_q: int = 64,
+                    block_k: int = 32) -> torch.Tensor:
+    """q: (B, Hq, Sq, D); k, v: (B, Hkv, Sk, D). Returns (B, Hq, Sq, D).
+
+    On a CUDA tensor this launches the Hopper kernel (or raises); a CPU
+    tensor takes the plain version. ``q_offset`` and ``sk_valid`` are host
+    ints: absolute position of query row 0, and the number of valid keys.
+    """
+    if q.device.type == "cpu":
+        return flash_attention_ref(q, k, v, causal=causal, window=window,
+                                   softcap=softcap, q_offset=q_offset,
+                                   sk_valid=sk_valid)
+    check_inputs("flash_attention", q, k, v)
+    B, Hq, Sq, D = q.shape
+    Bk, Hkv, Sk, Dk = k.shape
+    if v.shape != k.shape or Bk != B or Dk != D or Hq % Hkv:
+        raise ValueError(f"flash_attention: shapes q {tuple(q.shape)}, "
+                         f"k {tuple(k.shape)}, v {tuple(v.shape)}")
+    if block_q not in TILE_SIZES or block_k % 32 or not 32 <= block_k <= 128:
+        raise ValueError(f"flash_attention: block_q {block_q} not in "
+                         f"{TILE_SIZES} or block_k {block_k} not a multiple "
+                         f"of 32 in [32, 128]")
+    if window is not None and window < 1:
+        raise ValueError(f"flash_attention: window must be >= 1, got {window}")
+    if softcap is not None and softcap <= 0:
+        raise ValueError(f"flash_attention: softcap must be > 0, got {softcap}")
+    sk_valid = Sk if sk_valid is None else int(sk_valid)
+    if not 0 <= sk_valid <= Sk:
+        raise ValueError(f"flash_attention: sk_valid {sk_valid} outside [0, {Sk}]")
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    lib = _build.library()
+    code = lib.repro_flash_attention(
+        DTYPE_CODES[q.dtype], D, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        out.data_ptr(), B, Hq, Hkv, Sq, Sk, int(causal), window or 0,
+        float(softcap or 0.0), float(D ** -0.5), int(q_offset), sk_valid,
+        block_q, block_k, torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(code, "flash_attention")
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0
