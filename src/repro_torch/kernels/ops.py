@@ -8,8 +8,8 @@ version and no environment override. ``backend="ref"`` asks for the plain
 version on any device: the on-card comparison of the kernel path with the
 plain path uses it.
 
-Tile sizes: an explicit ``block_q``/``block_kv`` wins, else the kernel's
-default. (The autotune cache waits for ROADMAP Queue 1 item 7.)
+Tile sizes: an explicit ``block_q``/``block_kv``/``chunk`` wins, else the
+kernel's default. (The autotune cache waits for ROADMAP Queue 1 item 7.)
 """
 from __future__ import annotations
 
@@ -20,6 +20,7 @@ import torch
 from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels import ssm_scan as _ss
 
 BACKENDS = ("auto", "ref")
 
@@ -77,3 +78,20 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, kv_len, *,
                                            softcap=softcap)
     return _da.paged_decode_attention(q, k_pool, v_pool, block_tables, kv_len,
                                       window=window, softcap=softcap)
+
+
+def ssd_scan(x, dt, A, Bmat, Cmat, *, chunk: Optional[int] = None,
+             backend: str = "auto"):
+    """Mamba2 SSD chunked scan. ``chunk=None`` is 128, the kernel's default.
+    The plain path is the chunked matmul form, as the reference's ``ref``
+    backend."""
+    chunk = 128 if chunk is None else int(chunk)
+    if not _use_kernel(x, backend):
+        return _ref.ssd_scan_chunked(x, dt, A, Bmat, Cmat, chunk=chunk)
+    return _ss.ssd_scan(x, dt, A, Bmat, Cmat, chunk=chunk)
+
+
+def ssd_decode_step(state, x, dt, A, Bvec, Cvec):
+    # single-token state update: plain torch everywhere, as in the reference
+    # (elementwise work and tiny products, no kernel win at (B, H, P, N))
+    return _ref.ssd_decode_step(state, x, dt, A, Bvec, Cvec)

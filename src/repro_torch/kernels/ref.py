@@ -1,15 +1,17 @@
-"""Plain PyTorch versions of the attention kernels on the serving path.
+"""Plain PyTorch versions of the kernels on the serving path: attention and
+the Mamba2 SSD scan.
 
 Counterparts of ``repro/kernels/ref.py`` (same arguments, same layouts, same
-masking rules). They compute in float32 and return ``q.dtype``. They are the
-execution path for tensors on the CPU and the oracle every Hopper kernel in
-``csrc/`` is held against on the card.
+masking rules). They compute in float32 and return the input dtype (the SSD
+states stay float32). They are the execution path for tensors on the CPU
+and the oracle every Hopper kernel in ``csrc/`` is held against on the card.
 """
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import Optional, Tuple, Union
 
 import torch
+import torch.nn.functional as F
 
 NEG_INF = -1e30
 
@@ -149,3 +151,105 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
     v = gather_paged_kv(v_pool, block_tables)
     return decode_attention(q, k, v, kv_len=kv_len, softcap=softcap,
                             window=window)
+
+
+def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+             Bmat: torch.Tensor, Cmat: torch.Tensor,
+             init_state: Optional[torch.Tensor] = None
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Reference Mamba2 SSD recurrence (exact sequential scan).
+
+    x (B, H, S, P); dt (B, H, S) softplus-activated step sizes (> 0);
+    A (H,) negative decay rates; Bmat, Cmat (B, S, N), shared across heads
+    (ngroups = 1); init_state (B, H, P, N) or None.
+    Returns (y (B, H, S, P) in x.dtype, final_state (B, H, P, N) float32).
+
+    Per head:  state_t = exp(dt_t * A) * state_{t-1} + dt_t * x_t B_t^T
+               y_t = state_t C_t
+    """
+    Bsz, H, S, P = x.shape
+    N = Bmat.shape[-1]
+    xf, dtf, Af = x.float(), dt.float(), A.float()
+    Bf, Cf = Bmat.float(), Cmat.float()
+    state = (torch.zeros((Bsz, H, P, N), dtype=torch.float32, device=x.device)
+             if init_state is None else init_state.float())
+    ys = []
+    for t in range(S):
+        decay = torch.exp(dtf[:, :, t] * Af[None, :])                 # (B, H)
+        upd = torch.einsum("bhp,bn->bhpn", xf[:, :, t] * dtf[:, :, t, None],
+                           Bf[:, t])
+        state = state * decay[..., None, None] + upd
+        ys.append(torch.einsum("bhpn,bn->bhp", state, Cf[:, t]))
+    y = torch.stack(ys, dim=2) if ys else xf
+    return y.to(x.dtype), state
+
+
+def ssd_scan_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                     Bmat: torch.Tensor, Cmat: torch.Tensor, *,
+                     chunk: int = 128) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Chunked SSD: the same algebra as the Hopper kernel (per chunk a masked
+    decay-weighted C B^T, att @ x, and the carried state), in batched
+    matmuls. The sequential ``ssd_scan`` is the oracle for both. S is padded
+    to the chunk with dt = 0: an identity step with zero output.
+
+    The within-chunk cumsum of dt * A runs in float64, as in the kernel:
+    the decays exp(cum_i - cum_j) take the difference of two sums that reach
+    tens in magnitude, and in float32 that cancellation is the chunked
+    form's main error (about 2e-5 on y at S = 512, N = 128, the whole f32
+    budget). Everything else is float32."""
+    B, H, S, P = x.shape
+    N = Bmat.shape[-1]
+    pad = (-S) % chunk
+    if pad:
+        x = F.pad(x, (0, 0, 0, pad))
+        dt = F.pad(dt, (0, pad))
+        Bmat = F.pad(Bmat, (0, 0, 0, pad))
+        Cmat = F.pad(Cmat, (0, 0, 0, pad))
+    Sp = S + pad
+    nc = Sp // chunk
+    xf = x.float().reshape(B, H, nc, chunk, P)
+    dtf = dt.float().reshape(B, H, nc, chunk)
+    Af = A.float()
+    Bf = Bmat.float().reshape(B, nc, chunk, N)
+    Cf = Cmat.float().reshape(B, nc, chunk, N)
+
+    g = dtf * Af[None, :, None, None]                      # (B, H, nc, L)
+    cum = torch.cumsum(g.double(), dim=-1)                 # float64
+    seg = cum[..., :, None] - cum[..., None, :]            # (B, H, nc, L, L)
+    ii = torch.arange(chunk, device=x.device)
+    causal = ii[:, None] >= ii[None, :]
+    # clamp BEFORE exp: masked (j > i) entries have seg > 0 and can overflow
+    seg = torch.where(causal, seg, 0.0).float()
+    decay = torch.where(causal, torch.exp(seg), 0.0)
+    cb = torch.einsum("bcln,bcmn->bclm", Cf, Bf)           # (B, nc, L, L)
+    att = cb[:, None] * decay * dtf[..., None, :]          # (B, H, nc, L, L)
+    y_intra = torch.einsum("bhclm,bhcmp->bhclp", att, xf)
+
+    # inter-chunk state carry, a loop over the nc chunks
+    total = cum[..., -1]                                   # (B, H, nc)
+    w = torch.exp((total[..., None] - cum).float()) * dtf  # (B, H, nc, L)
+    chunk_state = torch.einsum("bhclp,bcln->bhcpn", xf * w[..., None], Bf)
+    state = torch.zeros((B, H, P, N), dtype=torch.float32, device=x.device)
+    in_states = []                                         # INCOMING states
+    for c in range(nc):
+        in_states.append(state)
+        state = state * torch.exp(total[:, :, c].float())[..., None, None] \
+            + chunk_state[:, :, c]
+    y_inter = torch.exp(cum.float())[..., None] * torch.einsum(
+        "bcln,bhcpn->bhclp", Cf, torch.stack(in_states, dim=2))
+    y = (y_intra + y_inter).reshape(B, H, Sp, P)[:, :, :S]
+    return y.to(x.dtype), state
+
+
+def ssd_decode_step(state: torch.Tensor, x: torch.Tensor, dt: torch.Tensor,
+                    A: torch.Tensor, Bvec: torch.Tensor, Cvec: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One-token SSD state update. state (B, H, P, N), x (B, H, P), dt (B, H),
+    Bvec/Cvec (B, N). Returns (y (B, H, P) in x.dtype, new state in
+    state.dtype)."""
+    decay = torch.exp(dt.float() * A.float()[None, :])
+    upd = torch.einsum("bhp,bn->bhpn", x.float() * dt[..., None],
+                       Bvec.float())
+    new = state.float() * decay[..., None, None] + upd
+    y = torch.einsum("bhpn,bn->bhp", new, Cvec.float())
+    return y.to(x.dtype), new.to(state.dtype)

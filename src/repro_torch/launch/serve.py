@@ -1,6 +1,8 @@
 """Serving entry point: hybrid-fleet router + the torch engine.
 
 ``python -m repro_torch.launch.serve --arch smollm-360m --requests 20``
+(any ported family: ``--arch mamba2-130m`` or ``--arch zamba2-1.2b`` serve
+the SSM and hybrid models, reduced as in ``repro.launch.serve``)
 
 Routes an Alpaca-like request stream across an (efficiency, performance)
 pool pair with the paper's scheduler, executes every request on the engine,

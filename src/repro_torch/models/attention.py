@@ -1,5 +1,5 @@
-"""Attention for the dense family: GQA with RoPE, KV-cache prefill and
-decode on a dense or a paged cache (counterpart of
+"""Attention for the dense family and the hybrid's shared block: GQA with
+RoPE, KV-cache prefill and decode on a dense or a paged cache (counterpart of
 ``repro/models/attention.py``; the int8 KV branches wait for ROADMAP Queue 1
 item 6).
 

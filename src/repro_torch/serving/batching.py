@@ -1,12 +1,14 @@
 """Continuous batching: the fixed-slot dense loop and the paged-KV runtime
 (counterpart of ``repro/serving/batching.py``).
 
-  * ``ContinuousBatcher`` — ``slots`` decode lanes over one dense
-    ``(layers, slots, heads, max_len, hd)`` cache; a finished lane is
+  * ``ContinuousBatcher`` — ``slots`` decode lanes over one dense cache
+    (K/V ``(layers, slots, heads, max_len, hd)``, or the SSM/hybrid conv,
+    ssm and ak/av tensors, all with the lane at axis 1); a finished lane is
     refilled by a whole-prompt prefill spliced into its region.
   * ``PagedContinuousBatcher`` — a shared block pool plus per-lane block
     tables, with memory-aware admission, chunked prefill interleaved with
-    decode ticks, and refcounted prefix-block sharing.
+    decode ticks, and refcounted prefix-block sharing (dense family only:
+    ``model.init_paged_cache`` refuses SSM and hybrid configs).
 
 Both keep one batched host sync per tick: the tokens a tick emits come to
 the host together, while the next tick's input stays on the device.
@@ -123,7 +125,8 @@ class ContinuousBatcher(_BatcherBase):
     def _retire(self, i: int) -> None:
         self.active[i].done = True
         self.active[i] = None
-        # the decode kernels mask by kv_len, so stale KV rows are unreachable
+        # the decode kernels mask by kv_len, so stale KV rows are
+        # unreachable; SSM states are overwritten by the next splice
         self.cache["pos"][i] = 0                          # in place
 
     def _fill_slots(self) -> None:

@@ -1,5 +1,5 @@
-"""Inference engine: prefill and decode steps over the dense model
-(counterpart of ``repro/serving/engine.py``).
+"""Inference engine: prefill and decode steps over the model of any ported
+family — dense, SSM, hybrid (counterpart of ``repro/serving/engine.py``).
 
 The engine owns the params of one architecture on one device. It runs on
 ``cuda`` unless the caller passes ``device="cpu"``; with no card and no

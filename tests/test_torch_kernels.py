@@ -271,9 +271,24 @@ def test_kernel_sources_and_build_are_lazy():
     from repro_torch.kernels import _build
     assert _build._lib is None
     srcs = {p.name for p in _build._sources()}
-    assert srcs == {"flash_attention.cu", "decode_attention.cu"}
+    assert srcs == {"flash_attention.cu", "decode_attention.cu",
+                    "ssm_scan.cu"}
     text = (_build.CSRC_DIR / "flash_attention.cu").read_text()
     assert "repro/kernels/flash_attention.py" in text
     text = (_build.CSRC_DIR / "decode_attention.cu").read_text()
     assert "_decode_kernel" in text and "_paged_decode_kernel" in text
     assert "arch=compute_90a,code=sm_90a" in " ".join(_build.NVCC_FLAGS)
+
+
+def test_ssm_scan_source_is_built_lazily():
+    """K5's source is in the lazy build, names the TPU kernel it replaces,
+    and its C entry point has a ctypes signature; importing its wrapper
+    builds nothing."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import ssm_scan  # noqa: F401
+    assert _build._lib is None
+    assert _build.CSRC_DIR / "ssm_scan.cu" in _build._sources()
+    text = (_build.CSRC_DIR / "ssm_scan.cu").read_text()
+    assert "repro/kernels/ssm_scan.py" in text and "_ssd_kernel" in text
+    assert 'extern "C" int repro_ssd_scan(' in text
+    assert len(_build._SIGNATURES["repro_ssd_scan"]) == 15
