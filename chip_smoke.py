@@ -17,9 +17,16 @@ Phases, each printing its own lines; any failure exits non-zero:
                at mamba2-130m's and zamba2-1.2b's shapes (chunk 128, S = 512
                and a ragged 300) and at their reduced shapes (P = N = 32,
                chunk 32), f32 2e-5, bf16 5e-2, y and the final state; then
-               each timed at each serving path's shapes beside the plain
-               version, one PyTorch library call where one computes the same
-               function, and the card's bound;
+               K4, the int8 paged decode, against its plain version (the
+               scale-folded read) at mistral-7b's serving shape and a
+               reduced D = 64 one (f32 2e-5, bf16 2e-2) and against the
+               gather oracle (f32 3e-5); then each timed at each serving
+               path's shapes beside the plain version, one PyTorch library
+               call where one computes the same function, and the card's
+               bound (K4 also beside the gather composition);
+  3c. tune   — the port's autotuner on the card (backend "cuda") over its
+               default shapes and the int8 serving bucket b4c1024; the cache
+               is written under build/ and not installed;
   4. parity  — full-width mistral-7b cut to 2 layers, float32, same seeded
                weights: the kernel path against the plain path over prefill
                plus 8 decode steps, through the dense engine and the paged
@@ -28,17 +35,27 @@ Phases, each printing its own lines; any failure exits non-zero:
                zamba2-1.2b cut to 7 layers (one segment with its shared
                attention block, and a tail), through the engine and the
                dense ContinuousBatcher;
+  4c. parity — phase 4 with an int8 KV cache (kv_quant), once with no
+               autotune cache (the int8 paged read gathers and runs K2) and
+               once with a cache that routes it to K4 ("fused"); the fused
+               run's logits also within 1e-3 of the gather run's;
   5. serve   — full mistral-7b (32 layers, bf16, random weights from a seed)
                behind FleetRouter(capacity_aware) over paper_fleet(): 8
                requests through paged batchers and 2 through the engine-only
                path; every kernel's launch count in this phase must be > 0;
   6. serve   — full mamba2-130m and full zamba2-1.2b (bf16, random weights
                from a seed) the same way through dense batchers: K5 must
-               launch for both, K1 and K2 for zamba2.
+               launch for both, K1 and K2 for zamba2;
+  7. serve   — phase 5 with an int8 KV cache, with an autotune cache
+               installed that routes the paged batchers' int8 read (bucket
+               b4c1024) to K4: K4, K1 and K2 must launch.
+
+Phases 5 and 6 run with no autotune cache installed.
 
 The line before the last is one JSON object with each kernel's numbers, one
 row per kernel and serving path: ``name@arch`` is the kernel on that model's
-path (plain ``name`` is mistral-7b's for K1-K3 and mamba2-130m's for K5),
+path (plain ``name`` is mistral-7b's for K1-K4 — K4's launches from phase 7
+— and mamba2-130m's for K5),
 with that path's launches and its own shapes' times and errors; the
 last line is {"ok": true, "device": {...}}. Without a CUDA device, or
 without the repository beside this file, it exits non-zero and prints no
@@ -46,6 +63,7 @@ result.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -69,6 +87,8 @@ MAX_LEN = M_CAP + N_CAP       # engine context on the serving path
 # the reduced ones through ``repro_torch.launch.serve``
 SSD_SHAPES = {"mamba2-130m": (24, 64, 128, 128), ZAMBA: (64, 64, 64, 128),
               "reduced": (16, 32, 32, 32)}
+GATHER_TOL = 3e-5     # int8 fused vs the gather oracle (tests/test_autotune.py)
+SERVE_KV_LEN = [40, 130, 300, 528]    # paged decode lanes at serving shape
 
 
 def fail(msg: str) -> None:
@@ -269,6 +289,77 @@ def check_paged(torch, gen):
     return worst
 
 
+def _int8_inputs(torch, gen, dt, bs, d, kv_len, num_blocks, max_blocks,
+                 hq=HQ, hkv=HKV):
+    """int8 pools, float32 scale pools in [0.005, 0.02), and tables whose
+    live entries are distinct random blocks (never the null block 0)."""
+    B = len(kv_len)
+    q = _rand(torch, gen, (B, hq, 1, d), dt)
+    shape = (num_blocks, hkv, bs, d)
+    kp = torch.randint(-127, 128, shape, generator=gen,
+                       device="cuda").to(torch.int8)
+    vp = torch.randint(-127, 128, shape, generator=gen,
+                       device="cuda").to(torch.int8)
+    ks = torch.rand(shape[:3] + (1,), generator=gen, device="cuda") \
+        * 0.015 + 0.005
+    vs = torch.rand(shape[:3] + (1,), generator=gen, device="cuda") \
+        * 0.015 + 0.005
+    perm = torch.randperm(num_blocks - 1, generator=gen, device="cuda") + 1
+    tables = torch.zeros((B, max_blocks), dtype=torch.int32, device="cuda")
+    used = 0
+    for b, n in enumerate(kv_len):
+        nb = -(-n // bs)
+        tables[b, :nb] = perm[used:used + nb].to(torch.int32)
+        used += nb
+    kvl = torch.tensor(kv_len, dtype=torch.int32, device="cuda")
+    return q, kp, vp, ks, vs, tables, kvl
+
+
+def check_int8(torch, gen):
+    """K4 against its plain version at mistral-7b's serving shape (B = 4,
+    pool 1024 x 16) and a reduced D = 64 one, and in f32 against the gather
+    oracle. Returns the worst error against the plain version."""
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.kernels import ref
+    worst = 0.0
+    mb = -(-MAX_LEN // 16)
+    cases = []
+    for dt in (torch.float32, torch.bfloat16):
+        cases += [dict(dtype=dt), dict(dtype=dt, softcap=30.0),
+                  dict(dtype=dt, window=64),
+                  dict(dtype=dt, softcap=20.0, window=200)]
+        cases += [dict(dtype=dt, d=64, hq=4, hkv=1, kv_len=[1, 45, 96, 130],
+                       nb=64)]
+    for c in cases:
+        dt, d = c["dtype"], c.get("d", D)
+        hq, hkv = c.get("hq", HQ), c.get("hkv", HKV)
+        kv_len = c.get("kv_len", SERVE_KV_LEN)
+        inp = _int8_inputs(torch, gen, dt, 16, d, kv_len, c.get("nb", 1024),
+                           mb, hq, hkv)
+        kw = dict(window=c.get("window"), softcap=c.get("softcap"))
+        got = DA.paged_decode_attention_int8(*inp, **kw)
+        want = DA.paged_decode_attention_int8_ref(*inp, **kw)
+        torch.cuda.synchronize()
+        rows = (inp[6] > 0)[:, None, None].expand(len(kv_len), hq, 1)
+        err, ok = _err_on_valid(torch, got, want, rows, TOL[str(dt)[6:]])
+        line = (f"  K4 int8   {str(dt)[6:]:8s} B={len(kv_len)} Hq={hq} "
+                f"Hkv={hkv} bs=16 D={d:3d} kv_len={kv_len} "
+                f"window={kw['window']} softcap={kw['softcap']}: "
+                f"max_abs_err={err:.3e}")
+        if dt == torch.float32:
+            oracle = ref.paged_decode_attention_quant(*inp[:6],
+                                                      kv_len=inp[6], **kw)
+            g_err, g_ok = _err_on_valid(torch, got, oracle, rows, GATHER_TOL)
+            line += f" vs_gather={g_err:.3e}"
+            ok = ok and g_ok
+        say(f"{line} {'ok' if ok else 'MISMATCH'}")
+        if not ok:
+            fail(f"K4 paged_decode_attention_int8 disagrees with its plain "
+                 f"version or the gather oracle: {c}")
+        worst = max(worst, err)
+    return worst
+
+
 def _ssd_inputs(torch, gen, dt_type, B, H, S, P, N):
     x = _rand(torch, gen, (B, H, S, P), dt_type)
     dt = torch.rand((B, H, S), generator=gen, device="cuda") * 0.2 + 0.001
@@ -438,6 +529,27 @@ def time_kernels(torch, gen):
         bound_ms=b_ms, bound_by=b_by,
         shape=f"B=4 Hq={HQ} Hkv={HKV} pool=1024x16 kv_len={kv_len} D={D} bf16")
 
+    # K4: the int8 paged batchers' decode, the same lanes and pool; no
+    # single PyTorch call computes it (library_ms null). Beside it, the
+    # gather composition (impl="gather": gather, dequantize, K2)
+    from repro_torch.kernels import ops
+    inp = _int8_inputs(torch, gen, dt, 16, D, kv_len, 1024, mb)
+    flops = 4 * HQ * D * n_kv
+    nbytes = 2 * HKV * n_kv * D + 2 * HKV * n_kv * 4 + 2 * 4 * HQ * D * isz \
+        + 4 * 4 + sum(-(-n // 16) for n in kv_len) * 4
+    b_ms, b_by = _bound(flops, nbytes)
+    out["paged_decode_attention_int8"] = dict(
+        ms=time_ms(torch, lambda: DA.paged_decode_attention_int8(
+            *inp, window=4096)),
+        plain_ms=time_ms(torch, lambda: DA.paged_decode_attention_int8_ref(
+            *inp, window=4096)),
+        gather_ms=time_ms(torch, lambda: ops.paged_decode_attention_quant(
+            *inp, window=4096, impl="gather")),
+        library_ms=None,
+        bound_ms=b_ms, bound_by=b_by,
+        shape=f"B=4 Hq={HQ} Hkv={HKV} pool=1024x16 int8 kv_len={kv_len} "
+              f"D={D} q bf16")
+
     # K5: one 512-token prompt prefill of one Mamba layer (engine path);
     # no single PyTorch call computes the SSD scan, so library_ms is null
     from repro_torch.kernels import ssm_scan as SS
@@ -459,8 +571,9 @@ def time_kernels(torch, gen):
             shape=f"{arch} B=1 H={H} S={S} P={P} N={N} chunk={L} bf16")
     for name, r in out.items():
         lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+        extra = f" gather_ms={r['gather_ms']:.4f}" if "gather_ms" in r else ""
         say(f"  time {name:34s} {r['shape']}: ms={r['ms']:.4f} "
-            f"plain_ms={r['plain_ms']:.4f} library_ms={lib} "
+            f"plain_ms={r['plain_ms']:.4f} library_ms={lib}{extra} "
             f"bound_ms={r['bound_ms']:.5f} ({r['bound_by']})")
     return out
 
@@ -470,13 +583,67 @@ def phase_kernels(torch):
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     errs = {**check_flash(torch, gen), **check_decode(torch, gen),
             "paged_decode_attention": check_paged(torch, gen),
+            "paged_decode_attention_int8": check_int8(torch, gen),
             **check_ssd(torch, gen)}
     times = time_kernels(torch, gen)
     return errs, times
 
 
+# --------------------------------------------------------------- phase 3c
+def phase_autotune(torch, card):
+    """The port's autotuner on the card over its default shapes (the
+    reference's grid, at the timer's default 4/2 heads of 64) and the int8
+    serving bucket at mistral-7b's heads (4 lanes x 34 blocks of 16 =
+    b4c1024). Written under build/, not installed."""
+    say("== phase 3c: autotune on the card (backend cuda)")
+    import functools
+
+    from repro_torch.kernels import autotune as AT
+    from repro_torch.kernels import timing
+    t0 = time.perf_counter()
+    cache = AT.autotune(profile="h100", backend="cuda", seed=SEED)
+    serving = AT.autotune(
+        {"paged_decode_quant": [{"b": 4, "c": MAX_LEN}]}, profile="h100",
+        backend="cuda", seed=SEED,
+        timer=functools.partial(timing.time_kernel, heads=HQ, kv_heads=HKV,
+                                head_dim=D))
+    for e in serving.entries.values():
+        cache.add(e)
+    for key, e in sorted(cache.entries.items()):
+        say(f"  tuned {key:36s} shape={e.shape} winner={e.params} "
+            f"t_s={e.t_s:.3e} t_default_s={e.t_default_s:.3e} "
+            f"speedup={e.speedup:.3f} noise_frac={e.noise_frac:.3f}")
+    path = cache.dump(AT.cache_path("h100", "cuda"))
+    say(f"  autotune cache: {path} ({len(cache.entries)} entries, not "
+        f"installed) geomean_speedup={cache.geomean_speedup():.3f} "
+        f"seconds={time.perf_counter() - t0:.2f} card={card}")
+    if AT.installed() is not None:
+        fail("phase 3c left an autotune cache installed")
+
+
+def _fused_cache(buckets):
+    """An autotune cache that routes the int8 paged read of each bucket to
+    ``fused`` on both lookup keys: K4 on the kernel path, its plain version
+    on the plain path."""
+    from repro_torch.kernels import autotune as AT
+    entries = [AT.TunedEntry(kernel="paged_decode_quant", backend=b,
+                             bucket=bucket, params={"impl": "fused"},
+                             t_s=1.0, t_default_s=1.0, noise_frac=0.0,
+                             flops=0.0, bytes=0.0, ctx=0.0)
+               for bucket in buckets for b in ("cuda", "ref")]
+    return AT.AutotuneCache("chip-smoke", "cuda", entries=entries)
+
+
+def _paged_bucket(lanes, max_len, block_size):
+    """The int8 paged read's bucket for an engine's paged cache."""
+    from repro_torch.core.scheduler import kv_blocks_needed
+    from repro_torch.kernels import autotune as AT
+    return AT.shape_bucket("paged_decode_quant", b=lanes,
+                           c=kv_blocks_needed(max_len, block_size) * block_size)
+
+
 # --------------------------------------------------------------- phases 4, 4b
-def _parity_engines(torch, cfg, max_len):
+def _parity_engines(torch, cfg, max_len, kv_quant=False):
     """Two engines on one set of seeded float32 weights: the kernel path
     ("auto") and the plain path ("ref")."""
     from repro_torch.models import model as M
@@ -484,7 +651,8 @@ def _parity_engines(torch, cfg, max_len):
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     params = M.init_params(cfg, gen, torch.float32, "cuda")
     return {b: InferenceEngine(cfg, params, max_len=max_len, backend=b,
-                               device="cuda") for b in ("auto", "ref")}
+                               device="cuda", kv_quant=kv_quant)
+            for b in ("auto", "ref")}
 
 
 def _compare(torch, what, a, b):
@@ -501,13 +669,15 @@ def _compare(torch, what, a, b):
 
 def _engine_parity(torch, label, eng, prompts):
     """Prefill plus 8 decode steps on both paths, the same tokens fed to
-    both. Returns the worst logit error and the caches."""
+    both. Returns the worst logit error, the caches and the kernel path's
+    logits of every step."""
     toks = torch.from_numpy(prompts).cuda()
     caches, logits = {}, {}
     for b, e in eng.items():
         logits[b], caches[b] = e.prefill({"tokens": toks})
     worst, tok = _compare(torch, f"{label} prefill", logits["auto"],
                           logits["ref"])
+    seen = [logits["auto"]]
     for step in range(8):
         for b, e in eng.items():
             logits[b], caches[b] = e.decode(tok[:, None].to(torch.int32),
@@ -515,7 +685,8 @@ def _engine_parity(torch, label, eng, prompts):
         err, tok = _compare(torch, f"{label} decode {step}", logits["auto"],
                             logits["ref"])
         worst = max(worst, err)
-    return worst, caches
+        seen.append(logits["auto"])
+    return worst, caches, seen
 
 
 def _batcher_parity(label, eng, make_batcher, prompts):
@@ -534,27 +705,27 @@ def _batcher_parity(label, eng, make_batcher, prompts):
         say(f"  {label} backend={b}: tokens={outs[b]}{stats}")
     if outs["auto"] != outs["ref"]:
         fail(f"{label}: kernel path tokens differ from the plain path")
+    return outs["auto"]
 
 
-def phase_parity(torch):
-    """Kernel path vs plain path on one model and one set of weights."""
-    say("== phase 4: model parity, mistral-7b full width, 2 layers, float32")
-    import dataclasses
-
+def _dense_and_paged_parity(torch, label, eng, prompts):
+    """Kernel path vs plain path through the dense engine (prefill on K1,
+    8 decode steps on K2), then a paged cache: chunked prefill (plain chunk
+    attention in both) and 8 paged decode steps (K3, or the int8 read for
+    an int8 cache) over two lanes of one pool, then the paged batcher.
+    Returns the worst logit error, the kernel path's logits of every step
+    and the batcher's tokens."""
     import numpy as np
-    from repro_torch.configs import get_config
     from repro_torch.serving.batching import PagedContinuousBatcher
+    worst, caches, seen = _engine_parity(torch, f"{label}dense", eng, prompts)
+    if "k_scale" in caches["auto"]:
+        # int8 rows the two paths quantized differently (a rounding step at
+        # a half-way point moved by float noise upstream)
+        d = (caches["auto"]["k"].int() - caches["ref"]["k"].int()).abs()
+        say(f"  {label}dense int8 K cache: {int((d > 0).sum())} of "
+            f"{d.numel()} entries differ between the paths, by at most "
+            f"{int(d.max())}")
 
-    cfg = dataclasses.replace(get_config("mistral-7b"), num_layers=2)
-    eng = _parity_engines(torch, cfg, 160)
-    rng = np.random.default_rng(SEED)
-    prompts = rng.integers(0, cfg.vocab_size, size=(2, 100)).astype(np.int32)
-
-    # dense engine: prefill (K1) + 8 decode steps (K2)
-    worst, caches = _engine_parity(torch, "dense", eng, prompts)
-
-    # paged: chunked prefill (plain chunk attention in both) + 8 decode
-    # steps (K3 against its plain version), two lanes of one pool
     bs, chunk = 16, 32
     for b in eng:
         caches[b] = eng[b].new_paged_cache(2, 32, bs)
@@ -572,23 +743,91 @@ def phase_parity(torch):
                 lg, caches[b] = e.prefill_chunk(torch.from_numpy(buf).cuda(),
                                                 caches[b], lane, c)
                 last[b][lane] = lg
-    err, tok = _compare(torch, "paged prefill", torch.cat(last["auto"]),
-                        torch.cat(last["ref"]))
+    err, tok = _compare(torch, f"{label}paged prefill",
+                        torch.cat(last["auto"]), torch.cat(last["ref"]))
     worst = max(worst, err)
+    seen.append(torch.cat(last["auto"]))
     live = torch.ones(2, dtype=torch.bool, device="cuda")
     logits = {}
     for step in range(8):
         for b, e in eng.items():
             logits[b], caches[b] = e.decode_paged(
                 tok[:, None].to(torch.int32), caches[b], live)
-        err, tok = _compare(torch, f"paged decode {step}", logits["auto"],
-                            logits["ref"])
+        err, tok = _compare(torch, f"{label}paged decode {step}",
+                            logits["auto"], logits["ref"])
         worst = max(worst, err)
+        seen.append(logits["auto"])
 
-    _batcher_parity("paged batcher", eng, lambda e: PagedContinuousBatcher(
-        e, slots=2, num_blocks=48, block_size=bs), prompts)
+    tokens = _batcher_parity(f"{label}paged batcher", eng,
+                             lambda e: PagedContinuousBatcher(
+                                 e, slots=2, num_blocks=48, block_size=bs),
+                             prompts)
+    return worst, seen, tokens
+
+
+PARITY_MAX_LEN = 160
+
+
+def _parity_setup(torch, kv_quant):
+    import numpy as np
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config("mistral-7b"), num_layers=2)
+    eng = _parity_engines(torch, cfg, PARITY_MAX_LEN, kv_quant)
+    rng = np.random.default_rng(SEED)
+    prompts = rng.integers(0, cfg.vocab_size, size=(2, 100)).astype(np.int32)
+    return eng, prompts
+
+
+def phase_parity(torch):
+    """Kernel path vs plain path on one model and one set of weights."""
+    say("== phase 4: model parity, mistral-7b full width, 2 layers, float32")
+    eng, prompts = _parity_setup(torch, False)
+    worst, _, _ = _dense_and_paged_parity(torch, "", eng, prompts)
     say(f"  parity ok: worst logit err {worst:.3e} (limit 1e-3)")
-    del eng, caches
+    del eng
+    torch.cuda.empty_cache()
+    return worst
+
+
+def phase_parity_int8(torch):
+    """Phase 4 with an int8 KV cache: once with no autotune cache (the int8
+    paged read gathers, dequantizes and runs K2) and once with a cache that
+    routes it to "fused" (K4 on the kernel path, its plain version on the
+    plain path); the fused run's kernel-path logits within 1e-3 of the
+    gather run's, step by step."""
+    say("== phase 4c: int8 KV parity, mistral-7b full width, 2 layers, "
+        "float32")
+    from repro_torch.kernels import autotune as AT
+    from repro_torch.kernels import decode_attention as DA
+    eng, prompts = _parity_setup(torch, True)
+    if eng["auto"].new_cache(1)["k"].dtype != torch.int8:
+        fail("phase 4c: the kv_quant engine's cache is not int8")
+    runs, worst = {}, 0.0
+    for impl in ("gather", "fused"):
+        AT.install(None if impl == "gather" else _fused_cache(
+            {_paged_bucket(2, PARITY_MAX_LEN, 16)}))
+        k4 = DA.paged_decode_attention_int8.launches
+        try:
+            err, seen, tokens = _dense_and_paged_parity(
+                torch, f"int8 {impl} ", eng, prompts)
+        finally:
+            AT.install(None)
+        launched = DA.paged_decode_attention_int8.launches - k4
+        say(f"  int8 {impl}: K4 launches {launched}")
+        if (launched > 0) != (impl == "fused"):
+            fail(f"phase 4c: K4 launched {launched} times under {impl}")
+        runs[impl] = (seen, tokens)
+        worst = max(worst, err)
+    cross = max((a.float() - b.float()).abs().max().item()
+                for a, b in zip(runs["fused"][0], runs["gather"][0]))
+    say(f"  int8 fused vs gather (kernel path): max_abs_logit_err="
+        f"{cross:.3e} batcher tokens "
+        f"{'equal' if runs['fused'][1] == runs['gather'][1] else 'differ'}")
+    if cross > 1e-3:
+        fail("phase 4c: the fused int8 read's logits differ from the gather "
+             "read's past 1e-3")
+    say(f"  parity ok: worst logit err {worst:.3e} (limit 1e-3)")
+    del eng
     torch.cuda.empty_cache()
     return worst
 
@@ -596,8 +835,6 @@ def phase_parity(torch):
 def phase_parity_ssm(torch):
     """Kernel path vs plain path for the SSM and hybrid families, through
     the engine and the dense batcher."""
-    import dataclasses
-
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.serving.batching import ContinuousBatcher
@@ -614,7 +851,7 @@ def phase_parity_ssm(torch):
         # 200 tokens: one full chunk of 128 and a ragged one
         prompts = rng.integers(0, cfg.vocab_size,
                                size=(2, 200)).astype(np.int32)
-        err, _ = _engine_parity(torch, arch, eng, prompts)
+        err, _, _ = _engine_parity(torch, arch, eng, prompts)
         worst = max(worst, err)
         _batcher_parity(f"{arch} dense batcher", eng,
                         lambda e: ContinuousBatcher(e, slots=2), prompts)
@@ -694,12 +931,15 @@ def _serve_mix(torch, cfg, engine, kernels, *, paged):
     if served != 10:
         fail(f"{cfg.name}: fleet reports count {served} queries, expected 10")
     say(f"  launches in this run: {launches}")
-    return launches, wall
+    tokens = [list(map(int, rr.request.out_tokens if rr.request is not None
+                       else rr.output)) for rr in routed]
+    return launches, wall, tokens
 
 
-def _serve(torch, card, arch, kernels, needed, *, paged):
+def _serve(torch, card, arch, kernels, needed, *, paged, kv_quant=False):
     """Full-size ``arch`` (bf16 random weights from the seed) through the
-    fixed mix; fails if a kernel in ``needed`` never launched."""
+    fixed mix; fails if a kernel in ``needed`` never launched. Returns the
+    launches and the served tokens."""
     from repro_torch.configs import get_config
     from repro_torch.models import model as M
     from repro_torch.serving.engine import InferenceEngine
@@ -713,8 +953,10 @@ def _serve(torch, card, arch, kernels, needed, *, paged):
     say(f"  weights: {M.param_count(params) / 1e9:.3f}B params bf16, "
         f"{cfg.num_layers} layers, init {time.perf_counter() - t0:.2f} s")
     engine = InferenceEngine(cfg, params, max_len=MAX_LEN,
-                             dtype=torch.bfloat16, device="cuda")
-    launches, wall = _serve_mix(torch, cfg, engine, kernels, paged=paged)
+                             dtype=torch.bfloat16, device="cuda",
+                             kv_quant=kv_quant)
+    launches, wall, tokens = _serve_mix(torch, cfg, engine, kernels,
+                                        paged=paged)
     if not all(launches[k] > 0 for k in needed):
         fail(f"{arch}: a kernel of the serving path never launched "
              f"(needs {needed}): {launches}")
@@ -722,7 +964,7 @@ def _serve(torch, card, arch, kernels, needed, *, paged):
         f"{torch.cuda.max_memory_allocated() / 1e9:.3f} card={card}")
     del params, engine
     torch.cuda.empty_cache()
-    return launches
+    return launches, tokens
 
 
 def phase_serve(torch, card):
@@ -733,6 +975,36 @@ def phase_serve(torch, card):
                DA.paged_decode_attention)
     return _serve(torch, card, "mistral-7b", kernels,
                   [fn.__name__ for fn in kernels], paged=True)
+
+
+def phase_serve_int8(torch, card, bf16_tokens):
+    """Phase 5 with an int8 KV cache, with an autotune cache installed that
+    routes the paged batchers' int8 read (4 lanes, bucket b4c1024) to K4.
+    K4 must launch (paged decode), K1 (prefill) and K2 (the engine-only
+    path's int8 decode) too. Returns the launches."""
+    say("== phase 7: serve mistral-7b (32 layers, bf16) with an int8 KV "
+        "cache through FleetRouter, int8 paged read routed to K4")
+    from repro_torch.kernels import autotune as AT
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.kernels import flash_attention as FA
+    kernels = (FA.flash_attention, DA.decode_attention,
+               DA.paged_decode_attention, DA.paged_decode_attention_int8)
+    bucket = _paged_bucket(4, MAX_LEN, 16)
+    say(f"  installed: paged_decode_quant/cuda/{bucket} -> fused")
+    AT.install(_fused_cache({bucket}))
+    try:
+        launches, tokens = _serve(
+            torch, card, "mistral-7b", kernels,
+            ["paged_decode_attention_int8", "flash_attention",
+             "decode_attention"], paged=True, kv_quant=True)
+    finally:
+        AT.install(None)
+    same = sum(a == b for ta, tb in zip(tokens, bf16_tokens)
+               for a, b in zip(ta, tb))
+    total = sum(len(t) for t in bf16_tokens)
+    say(f"  int8 vs bf16 KV (phase 5) served tokens equal: {same}/{total} "
+        f"(information only: random weights give near-flat logits)")
+    return launches
 
 
 def phase_serve_ssm(torch, card):
@@ -750,7 +1022,7 @@ def phase_serve_ssm(torch, card):
             (ZAMBA, ("ssd_scan", "flash_attention", "decode_attention"),
              "{}@" + ZAMBA)):
         say(f"== phase 6: serve {arch} (full, bf16) through FleetRouter")
-        launches = _serve(torch, card, arch, kernels, needed, paged=False)
+        launches, _ = _serve(torch, card, arch, kernels, needed, paged=False)
         out.update({key.format(k): launches[k] for k in needed})
     return out
 
@@ -765,12 +1037,18 @@ def main() -> None:
     t0 = time.perf_counter()
     name, count, card = phase_device(torch)
     import repro_torch  # noqa: F401  (sets the TF32 switches)
+    from repro_torch.kernels import autotune as AT
     phase_build()
     errs, times = phase_kernels(torch)
+    phase_autotune(torch, card)
     phase_parity(torch)
     phase_parity_ssm(torch)
-    launches = phase_serve(torch, card)
+    phase_parity_int8(torch)
+    launches, bf16_tokens = phase_serve(torch, card)
     launches.update(phase_serve_ssm(torch, card))
+    int8 = phase_serve_int8(torch, card, bf16_tokens)
+    launches["paged_decode_attention_int8"] = \
+        int8["paged_decode_attention_int8"]
 
     sources = {"flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                                    "src/repro/kernels/flash_attention.py:98"),
@@ -779,11 +1057,15 @@ def main() -> None:
                "paged_decode_attention": (
                    "src/repro_torch/csrc/decode_attention.cu",
                    "src/repro/kernels/decode_attention.py:261"),
+               "paged_decode_attention_int8": (
+                   "src/repro_torch/csrc/decode_attention.cu",
+                   "src/repro/kernels/decode_attention.py:195"),
                "ssd_scan": ("src/repro_torch/csrc/ssm_scan.cu",
                             "src/repro/kernels/ssm_scan.py:73")}
     rows = []
     for kname in ("flash_attention", "decode_attention",
-                  "paged_decode_attention", "ssd_scan", f"ssd_scan@{ZAMBA}",
+                  "paged_decode_attention", "paged_decode_attention_int8",
+                  "ssd_scan", f"ssd_scan@{ZAMBA}",
                   f"flash_attention@{ZAMBA}", f"decode_attention@{ZAMBA}"):
         src, replaces = sources[kname.split("@")[0]]
         t = times[kname]
@@ -792,6 +1074,8 @@ def main() -> None:
                      "max_abs_err": errs[kname], "ms": t["ms"],
                      "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                      "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+    if AT.installed() is not None:
+        fail("an autotune cache is still installed at the end")
     say(f"total_s={time.perf_counter() - t0:.2f} card={card}")
     say(json.dumps({"kernels": rows}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

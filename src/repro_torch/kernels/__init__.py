@@ -1,1 +1,2 @@
-"""Hopper kernels for the serving path, their plain versions, and the device dispatch."""
+"""Hopper kernels for the serving path, their plain versions, the device
+dispatch, and the autotuner with its timer."""

@@ -1,11 +1,13 @@
-"""K2 and K3: one query token against a dense or a paged KV cache — the
-Hopper kernels' wrappers and their plain versions.
+"""K2, K3 and K4: one query token against a dense, a paged or an int8 paged
+KV cache — the Hopper kernels' wrappers and their plain versions.
 
 K2 replaces the Pallas TPU kernel ``repro/kernels/decode_attention.py::
 decode_attention`` (body ``_decode_kernel``); K3 replaces
-``paged_decode_attention`` (body ``_paged_decode_kernel``). Both are
-``csrc/decode_attention.cu``, one template with two addressing modes; its
-header note says what bounds them and what this first version leaves out.
+``paged_decode_attention`` (body ``_paged_decode_kernel``); K4 replaces
+``paged_decode_attention_int8`` (body ``_paged_decode_int8_kernel``). All
+three are ``csrc/decode_attention.cu``, one template with a dense and a
+paged addressing mode and a float or int8 tile loader; its header note says
+what bounds them and what this first version leaves out.
 """
 from __future__ import annotations
 
@@ -35,6 +37,17 @@ def paged_decode_attention_ref(q, k_pool, v_pool, block_tables, kv_len, *,
     return _ref.paged_decode_attention(q, k_pool, v_pool, block_tables,
                                        kv_len=kv_len, window=window,
                                        softcap=softcap)
+
+
+def paged_decode_attention_int8_ref(q, k_pool, v_pool, k_scale_pool,
+                                    v_scale_pool, block_tables, kv_len, *,
+                                    window: Optional[int] = None,
+                                    softcap: Optional[float] = None
+                                    ) -> torch.Tensor:
+    """The plain version of K4: the scale-folded int8 read."""
+    return _ref.paged_decode_attention_quant_fused(
+        q, k_pool, v_pool, k_scale_pool, v_scale_pool, block_tables,
+        kv_len=kv_len, window=window, softcap=softcap)
 
 
 def _check_common(name, q, kv_len, window, softcap, block_k) -> None:
@@ -107,12 +120,7 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
     if v_pool.shape != k_pool.shape or Dp != D or Hq % Hkv:
         raise ValueError(f"paged_decode_attention: shapes q {tuple(q.shape)}, "
                          f"pool {tuple(k_pool.shape)}")
-    if block_tables.dtype != torch.int32 or block_tables.dim() != 2 \
-            or block_tables.shape[0] != B or block_tables.device != q.device \
-            or not block_tables.is_contiguous():
-        raise ValueError("paged_decode_attention: block_tables must be a "
-                         f"contiguous ({B}, max_blocks) int32 tensor on "
-                         f"{q.device}")
+    _check_tables("paged_decode_attention", block_tables, B, q.device)
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
@@ -127,5 +135,87 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
     return out
 
 
+def _check_tables(name, block_tables, B, device) -> None:
+    if block_tables.dtype != torch.int32 or block_tables.dim() != 2 \
+            or block_tables.shape[0] != B or block_tables.device != device \
+            or not block_tables.is_contiguous():
+        raise ValueError(f"{name}: block_tables must be a contiguous "
+                         f"({B}, max_blocks) int32 tensor on {device}")
+
+
+def _check_int8_pools(q, k_pool, v_pool, k_scale_pool, v_scale_pool) -> None:
+    """What K4 takes: q float32 or bfloat16, head dim 64 or 128; int8
+    pools (num_blocks, Hkv, block_size, D) and float32 scale pools
+    (num_blocks, Hkv, block_size, 1), all contiguous, 16-byte aligned, on
+    q's device."""
+    name = "paged_decode_attention_int8"
+    check_inputs(name, q)
+    for t, what in ((k_pool, "k_pool"), (v_pool, "v_pool")):
+        if t.dtype != torch.int8:
+            raise ValueError(f"{name}: {what} must be int8, got {t.dtype}")
+    for t, what in ((k_scale_pool, "k_scale_pool"),
+                    (v_scale_pool, "v_scale_pool")):
+        if t.dtype != torch.float32:
+            raise ValueError(f"{name}: {what} must be float32, got {t.dtype}")
+    if k_pool.dim() != 4 or v_pool.shape != k_pool.shape \
+            or k_pool.shape[3] != q.shape[3] or q.shape[1] % k_pool.shape[1]:
+        raise ValueError(f"{name}: shapes q {tuple(q.shape)}, pools "
+                         f"{tuple(k_pool.shape)} / {tuple(v_pool.shape)}")
+    want = (*k_pool.shape[:3], 1)
+    for t, what in ((k_scale_pool, "k_scale_pool"),
+                    (v_scale_pool, "v_scale_pool")):
+        if tuple(t.shape) != want:
+            raise ValueError(f"{name}: {what} must be {want}, got "
+                             f"{tuple(t.shape)}")
+    for t in (k_pool, v_pool, k_scale_pool, v_scale_pool):
+        if t.device != q.device:
+            raise ValueError(f"{name}: all inputs must be on {q.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: pools must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: pools must be 16-byte aligned")
+
+
+def paged_decode_attention_int8(q: torch.Tensor, k_pool: torch.Tensor,
+                                v_pool: torch.Tensor,
+                                k_scale_pool: torch.Tensor,
+                                v_scale_pool: torch.Tensor,
+                                block_tables: torch.Tensor,
+                                kv_len: torch.Tensor, *,
+                                window: Optional[int] = None,
+                                softcap: Optional[float] = None
+                                ) -> torch.Tensor:
+    """K4. q: (B, Hq, 1, D) float32 or bfloat16; k/v pools (num_blocks,
+    Hkv, block_size, D) int8; k/v scale pools (num_blocks, Hkv, block_size,
+    1) float32; block_tables (B, max_blocks) int32, every entry a valid pool
+    index; kv_len (B,) int32. Returns (B, Hq, 1, D) in q's dtype. CUDA
+    tensors launch the kernel (or raise); CPU tensors take the plain
+    version."""
+    if q.device.type == "cpu":
+        return paged_decode_attention_int8_ref(
+            q, k_pool, v_pool, k_scale_pool, v_scale_pool, block_tables,
+            kv_len, window=window, softcap=softcap)
+    _check_int8_pools(q, k_pool, v_pool, k_scale_pool, v_scale_pool)
+    _check_common("paged_decode_attention_int8", q, kv_len, window, softcap,
+                  PAGED_BLOCK_K)
+    B, Hq, _, D = q.shape
+    _, Hkv, bs, _ = k_pool.shape
+    _check_tables("paged_decode_attention_int8", block_tables, B, q.device)
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    code = _build.library().repro_paged_decode_attention_int8(
+        DTYPE_CODES[q.dtype], D, q.data_ptr(), k_pool.data_ptr(),
+        v_pool.data_ptr(), k_scale_pool.data_ptr(), v_scale_pool.data_ptr(),
+        block_tables.data_ptr(), kv_len.data_ptr(), out.data_ptr(), B, Hq,
+        Hkv, bs, block_tables.shape[1], window or 0, float(softcap or 0.0),
+        float(D ** -0.5), PAGED_BLOCK_K,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(code, "paged_decode_attention_int8")
+    paged_decode_attention_int8.launches += 1
+    return out
+
+
 decode_attention.launches = 0
 paged_decode_attention.launches = 0
+paged_decode_attention_int8.launches = 0

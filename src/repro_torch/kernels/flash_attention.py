@@ -18,6 +18,15 @@ from repro_torch.kernels import ref as _ref
 HEAD_DIMS = (64, 128)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 TILE_SIZES = (16, 32, 64, 128)     # block_q; block_k is a multiple of 32
+SMEM_BYTES = 232_448               # dynamic shared memory a block may use
+
+
+def smem_bytes(rows: int, block_k: int, head_dim: int) -> int:
+    """Shared memory of one attention block (csrc/attention_common.cuh
+    ``smem_floats``): q and acc rows, m and l, the K and V tiles."""
+    r4 = (rows + 3) & ~3
+    return 4 * (2 * rows * head_dim + 2 * r4 + head_dim * (block_k + 1)
+                + block_k * head_dim)
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -82,6 +91,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"flash_attention: block_q {block_q} not in "
                          f"{TILE_SIZES} or block_k {block_k} not a multiple "
                          f"of 32 in [32, 128]")
+    if smem_bytes(block_q, block_k, D) > SMEM_BYTES:
+        raise ValueError(f"flash_attention: block_q {block_q} x block_k "
+                         f"{block_k} at head dim {D} needs "
+                         f"{smem_bytes(block_q, block_k, D)} bytes of shared "
+                         f"memory, over {SMEM_BYTES}")
     if window is not None and window < 1:
         raise ValueError(f"flash_attention: window must be >= 1, got {window}")
     if softcap is not None and softcap <= 0:

@@ -8,8 +8,14 @@ version and no environment override. ``backend="ref"`` asks for the plain
 version on any device: the on-card comparison of the kernel path with the
 plain path uses it.
 
-Tile sizes: an explicit ``block_q``/``block_kv``/``chunk`` wins, else the
-kernel's default. (The autotune cache waits for ROADMAP Queue 1 item 7.)
+Parameters (tile sizes, the SSD ``chunk``, the int8 read path ``impl``)
+resolve explicit -> tuned -> default: an explicit kwarg wins, then the
+winner of the installed autotune cache (``kernels.autotune.install``) for
+this kernel, backend and shape bucket, then the kernel's default. The
+lookup's backend is ``"cuda"`` for a CUDA tensor under ``backend="auto"``
+and ``"ref"`` otherwise; it reads shapes only, so it adds no host sync. With
+no cache installed nothing is passed down, and every entry point returns
+bit for bit what it returned before the cache existed.
 """
 from __future__ import annotations
 
@@ -17,12 +23,14 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import autotune as _at
 from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import ssm_scan as _ss
 
 BACKENDS = ("auto", "ref")
+QUANT_IMPLS = ("gather", "fused")
 
 
 def _use_kernel(x: torch.Tensor, backend: str) -> bool:
@@ -31,22 +39,28 @@ def _use_kernel(x: torch.Tensor, backend: str) -> bool:
     return backend == "auto" and x.device.type == "cuda"
 
 
+def _tuned(kernel: str, use_kernel: bool, **dims: int):
+    return _at.lookup(kernel, "cuda" if use_kernel else "ref",
+                      _at.shape_bucket(kernel, **dims))
+
+
 def flash_attention(q, k, v, *, causal: bool = True,
                     window: Optional[int] = None,
                     softcap: Optional[float] = None, q_offset: int = 0,
                     block_q: Optional[int] = None,
                     block_kv: Optional[int] = None,
                     backend: str = "auto") -> torch.Tensor:
-    if not _use_kernel(q, backend):
-        kw = {} if block_q is None else {"block_q": int(block_q)}
+    use = _use_kernel(q, backend)
+    tuned = _tuned("flash_attention", use, s=q.shape[2])
+    bq = block_q if block_q is not None else tuned.get("block_q")
+    kw = {} if bq is None else {"block_q": int(bq)}
+    if not use:
         return _ref.mha_attention_chunked(q, k, v, causal=causal, window=window,
                                           softcap=softcap, q_offset=q_offset,
                                           **kw)
-    kw = {}
-    if block_q is not None:
-        kw["block_q"] = int(block_q)
-    if block_kv is not None:
-        kw["block_k"] = int(block_kv)
+    bk = block_kv if block_kv is not None else tuned.get("block_kv")
+    if bk is not None:
+        kw["block_k"] = int(bk)
     return _fa.flash_attention(q, k, v, causal=causal, window=window,
                                softcap=softcap, q_offset=q_offset, **kw)
 
@@ -61,7 +75,10 @@ def decode_attention(q, k_cache, v_cache, kv_len, *,
         # ignored, as in the reference package
         return _ref.decode_attention(q, k_cache, v_cache, kv_len=kv_len,
                                      window=window, softcap=softcap)
-    kw = {} if block_kv is None else {"block_k": int(block_kv)}
+    tuned = _tuned("decode_attention", True, b=q.shape[0],
+                   c=k_cache.shape[2])
+    bk = block_kv if block_kv is not None else tuned.get("block_kv")
+    kw = {} if bk is None else {"block_k": int(bk)}
     return _da.decode_attention(q, k_cache, v_cache, kv_len, window=window,
                                 softcap=softcap, **kw)
 
@@ -80,13 +97,59 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, kv_len, *,
                                       window=window, softcap=softcap)
 
 
+def paged_decode_attention_quant(q, k_pool, v_pool, k_scale_pool,
+                                 v_scale_pool, block_tables, kv_len, *,
+                                 window: Optional[int] = None,
+                                 softcap: Optional[float] = None,
+                                 impl: Optional[str] = None,
+                                 backend: str = "auto") -> torch.Tensor:
+    """Decode attention over an int8 paged KV cache, by one of two read
+    paths:
+
+      * ``impl="gather"`` (the default): gather the lane's blocks,
+        dequantize to q.dtype, then ``decode_attention`` (K2 on the card).
+      * ``impl="fused"``: the int8 read fused into the attention — K4 on a
+        CUDA tensor (or raise), the scale-folded plain version otherwise —
+        so no dequantized copy of the cache is made.
+
+    ``impl=None`` resolves explicit -> tuned -> "gather".
+    """
+    use = _use_kernel(q, backend)
+    if impl is None:
+        tuned = _tuned("paged_decode_quant", use, b=q.shape[0],
+                       c=block_tables.shape[1] * k_pool.shape[2])
+        impl = str(tuned.get("impl", "gather"))
+    if impl not in QUANT_IMPLS:
+        raise ValueError(f"unknown quantized decode impl {impl!r}; "
+                         f"expected one of {QUANT_IMPLS}")
+    if impl == "gather":
+        k = _ref.dequantize_kv(_ref.gather_paged_kv(k_pool, block_tables),
+                               _ref.gather_paged_kv(k_scale_pool, block_tables),
+                               q.dtype)
+        v = _ref.dequantize_kv(_ref.gather_paged_kv(v_pool, block_tables),
+                               _ref.gather_paged_kv(v_scale_pool, block_tables),
+                               q.dtype)
+        return decode_attention(q, k, v, kv_len, window=window,
+                                softcap=softcap, backend=backend)
+    if not use:
+        return _ref.paged_decode_attention_quant_fused(
+            q, k_pool, v_pool, k_scale_pool, v_scale_pool, block_tables,
+            kv_len=kv_len, window=window, softcap=softcap)
+    return _da.paged_decode_attention_int8(
+        q, k_pool, v_pool, k_scale_pool, v_scale_pool, block_tables, kv_len,
+        window=window, softcap=softcap)
+
+
 def ssd_scan(x, dt, A, Bmat, Cmat, *, chunk: Optional[int] = None,
              backend: str = "auto"):
-    """Mamba2 SSD chunked scan. ``chunk=None`` is 128, the kernel's default.
-    The plain path is the chunked matmul form, as the reference's ``ref``
-    backend."""
-    chunk = 128 if chunk is None else int(chunk)
-    if not _use_kernel(x, backend):
+    """Mamba2 SSD chunked scan. ``chunk=None`` resolves tuned -> 128, the
+    kernel's default. The plain path is the chunked matmul form, as the
+    reference's ``ref`` backend."""
+    use = _use_kernel(x, backend)
+    if chunk is None:
+        chunk = _tuned("ssm_scan", use, s=x.shape[2]).get("chunk", 128)
+    chunk = int(chunk)
+    if not use:
         return _ref.ssd_scan_chunked(x, dt, A, Bmat, Cmat, chunk=chunk)
     return _ss.ssd_scan(x, dt, A, Bmat, Cmat, chunk=chunk)
 

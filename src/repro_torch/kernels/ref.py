@@ -153,6 +153,74 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
                             window=window)
 
 
+def dequantize_kv(q: torch.Tensor, scale: torch.Tensor,
+                  dtype=torch.float32) -> torch.Tensor:
+    """Inverse of the models' symmetric per-row int8 KV quantization."""
+    return (q.float() * scale).to(dtype)
+
+
+def paged_decode_attention_quant(q: torch.Tensor, k_pool: torch.Tensor,
+                                 v_pool: torch.Tensor,
+                                 k_scale_pool: torch.Tensor,
+                                 v_scale_pool: torch.Tensor,
+                                 block_tables: torch.Tensor, *,
+                                 kv_len: torch.Tensor,
+                                 softcap: Optional[float] = None,
+                                 window: Optional[int] = None) -> torch.Tensor:
+    """Decode attention over int8 paged K/V: the gather-dequantize oracle.
+
+    q: (B, Hq, 1, D); k_pool/v_pool: (num_blocks, Hkv, block_size, D) int8;
+    k_scale_pool/v_scale_pool: (num_blocks, Hkv, block_size, 1) float32
+    per-row scales. The ground truth of every quantized read path: gather
+    the lane's blocks, dequantize to q.dtype, then dense masked decode.
+    """
+    k = dequantize_kv(gather_paged_kv(k_pool, block_tables),
+                      gather_paged_kv(k_scale_pool, block_tables), q.dtype)
+    v = dequantize_kv(gather_paged_kv(v_pool, block_tables),
+                      gather_paged_kv(v_scale_pool, block_tables), q.dtype)
+    return decode_attention(q, k, v, kv_len=kv_len, softcap=softcap,
+                            window=window)
+
+
+def paged_decode_attention_quant_fused(q: torch.Tensor, k_pool: torch.Tensor,
+                                       v_pool: torch.Tensor,
+                                       k_scale_pool: torch.Tensor,
+                                       v_scale_pool: torch.Tensor,
+                                       block_tables: torch.Tensor, *,
+                                       kv_len: torch.Tensor,
+                                       softcap: Optional[float] = None,
+                                       window: Optional[int] = None,
+                                       ) -> torch.Tensor:
+    """Scale-folded int8 decode: no dequantized K/V is materialized (K4's
+    plain version).
+
+    logits = (q . k_int8) * k_scale and out = (p * v_scale) @ v_int8. A hair
+    different from the gather oracle when q.dtype is low precision (the
+    dequantized values are never rounded to q.dtype), as in the reference.
+    """
+    B, Hq, _, D = q.shape
+    k8 = gather_paged_kv(k_pool, block_tables)          # (B, Hkv, S, D) int8
+    v8 = gather_paged_kv(v_pool, block_tables)
+    ks = gather_paged_kv(k_scale_pool, block_tables)    # (B, Hkv, S, 1) f32
+    vs = gather_paged_kv(v_scale_pool, block_tables)
+    Hkv, S = k8.shape[1], k8.shape[2]
+    group = Hq // Hkv
+    qg = (q.float() * (D ** -0.5)).reshape(B, Hkv, group, 1, D)
+    logits = torch.einsum("bhgqd,bhkd->bhgqk", qg, k8.float())
+    logits = logits * ks[..., 0][:, :, None, None, :]   # fold k scale per pos
+    if softcap is not None:
+        logits = softcap * torch.tanh(logits / softcap)
+    kpos = torch.arange(S, device=q.device)[None, :]
+    valid = kpos < kv_len[:, None]
+    if window is not None:
+        valid &= kpos >= (kv_len[:, None] - window)
+    logits = torch.where(valid[:, None, None, None, :], logits, NEG_INF)
+    p = torch.softmax(logits, dim=-1)
+    pw = p * vs[..., 0][:, :, None, None, :]            # fold v scale per pos
+    out = torch.einsum("bhgqk,bhkd->bhgqd", pw, v8.float())
+    return out.reshape(B, Hq, 1, D).to(q.dtype)
+
+
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
              Bmat: torch.Tensor, Cmat: torch.Tensor,
              init_state: Optional[torch.Tensor] = None

@@ -1,7 +1,6 @@
 """Attention for the dense family and the hybrid's shared block: GQA with
-RoPE, KV-cache prefill and decode on a dense or a paged cache (counterpart of
-``repro/models/attention.py``; the int8 KV branches wait for ROADMAP Queue 1
-item 6).
+RoPE, KV-cache prefill and decode on a dense or a paged cache, float or int8
+with per-row float32 scales (counterpart of ``repro/models/attention.py``).
 
 The reference package returns new caches; here cache writes are in place
 (indexed assignment into the given tensors), which saves a copy of the whole
@@ -42,6 +41,29 @@ def _merge_heads(x: torch.Tensor) -> torch.Tensor:
     return x.transpose(1, 2).reshape(B, S, H * D)
 
 
+def quantize_kv(x: torch.Tensor, axis: int = -1):
+    """Symmetric per-row int8 quantization, bit for bit the reference's:
+    x (..., D) -> (int8, scale (..., 1) float32). ``torch.round`` rounds
+    half to even, as ``jnp.round`` does."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=axis, keepdim=True)
+    scale = torch.clamp(amax, min=1e-6) / 127.0
+    q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
+    return q, scale
+
+
+dequantize_kv = ref.dequantize_kv      # (int8, scale) -> dtype, as the reference
+
+
+def _write_int8(k_cache, v_cache, k_scale, v_scale, at, k, v) -> None:
+    """Quantize k and v per row and write them and their scales at index
+    ``at`` of the int8 caches and scale tensors (in place)."""
+    for cache, scale, x in ((k_cache, k_scale, k), (v_cache, v_scale, v)):
+        xq, xs = quantize_kv(x)
+        cache[at] = xq                                      # in place
+        scale[at] = xs                                      # in place
+
+
 def _qkv(params, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor):
     """Projections, heads split, RoPE on q and k; contiguous (B, H, S, D),
     the layout the kernels take."""
@@ -60,16 +82,24 @@ def _qkv(params, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor):
 def prefill_attention(params, cfg: ModelConfig, x: torch.Tensor, *,
                       positions: torch.Tensor, k_cache: torch.Tensor,
                       v_cache: torch.Tensor, window: Optional[int] = None,
-                      backend: str = "auto") -> torch.Tensor:
+                      backend: str = "auto",
+                      k_scale: Optional[torch.Tensor] = None,
+                      v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Self attention over the prompt that also writes its K/V into the
     cache. x: (B, S, d); k_cache/v_cache: (B, Hkv, Smax, D), Smax >= S,
-    written in place. Returns the attention output (B, S, d)."""
+    written in place; int8 caches (k_scale/v_scale (B, Hkv, Smax, 1) given)
+    are written quantized per row. Attention runs on the fresh K/V. Returns
+    the attention output (B, S, d)."""
     q, k, v = _qkv(params, cfg, x, positions)
     out = ops.flash_attention(q, k, v, causal=True, window=window,
                               softcap=cfg.attn_logit_softcap, backend=backend)
     S = x.shape[1]
-    k_cache[:, :, :S] = k.to(k_cache.dtype)                 # in place
-    v_cache[:, :, :S] = v.to(v_cache.dtype)                 # in place
+    if k_scale is not None:
+        _write_int8(k_cache, v_cache, k_scale, v_scale,
+                    (slice(None), slice(None), slice(None, S)), k, v)
+    else:
+        k_cache[:, :, :S] = k.to(k_cache.dtype)             # in place
+        v_cache[:, :, :S] = v.to(v_cache.dtype)             # in place
     return L.linear(params["o"], _merge_heads(out))
 
 
@@ -77,18 +107,30 @@ def decode_self_attention(params, cfg: ModelConfig, x: torch.Tensor, *,
                           positions: torch.Tensor, k_cache: torch.Tensor,
                           v_cache: torch.Tensor, kv_len: torch.Tensor,
                           window: Optional[int] = None,
-                          backend: str = "auto") -> torch.Tensor:
+                          backend: str = "auto",
+                          k_scale: Optional[torch.Tensor] = None,
+                          v_scale: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
     """One-token decode. x: (B, 1, d); kv_len (B,) int32: length INCLUDING
     this token. The new K/V row is written in place at kv_len-1 (clamped to
     the cache, as the reference's dynamic_update_slice clamps), then decode
-    attention runs over the cache."""
+    attention runs over the cache. int8 caches (k_scale/v_scale given)
+    quantize the new row and are dequantized to q's dtype for the read, as
+    in the reference."""
     q, k, v = _qkv(params, cfg, x, positions)
     B, Smax = x.shape[0], k_cache.shape[2]
     lanes = torch.arange(B, device=x.device)
     idx = (kv_len - 1).clamp(0, Smax - 1).long()
-    k_cache[lanes, :, idx] = k[:, :, 0].to(k_cache.dtype)   # in place
-    v_cache[lanes, :, idx] = v[:, :, 0].to(v_cache.dtype)   # in place
-    out = ops.decode_attention(q, k_cache, v_cache, kv_len, window=window,
+    if k_scale is not None:
+        _write_int8(k_cache, v_cache, k_scale, v_scale,
+                    (lanes, slice(None), idx), k[:, :, 0], v[:, :, 0])
+        k_read = dequantize_kv(k_cache, k_scale, q.dtype)
+        v_read = dequantize_kv(v_cache, v_scale, q.dtype)
+    else:
+        k_cache[lanes, :, idx] = k[:, :, 0].to(k_cache.dtype)   # in place
+        v_cache[lanes, :, idx] = v[:, :, 0].to(v_cache.dtype)   # in place
+        k_read, v_read = k_cache, v_cache
+    out = ops.decode_attention(q, k_read, v_read, kv_len, window=window,
                                softcap=cfg.attn_logit_softcap, backend=backend)
     return L.linear(params["o"], _merge_heads(out))
 
@@ -100,7 +142,10 @@ def paged_prefill_chunk_attention(params, cfg: ModelConfig, x: torch.Tensor,
                                   rows: torch.Tensor, kv_len: torch.Tensor,
                                   q_offset: torch.Tensor,
                                   window: Optional[int] = None,
-                                  backend: str = "auto") -> torch.Tensor:
+                                  backend: str = "auto",
+                                  k_scale_pool: Optional[torch.Tensor] = None,
+                                  v_scale_pool: Optional[torch.Tensor] = None
+                                  ) -> torch.Tensor:
     """Chunked-prefill self attention for ONE lane of a paged cache.
 
     x: (1, C, d), the lane's next C prompt tokens (rows past the valid count
@@ -108,13 +153,26 @@ def paged_prefill_chunk_attention(params, cfg: ModelConfig, x: torch.Tensor,
     ``block_ids``). The chunk's K/V rows go into the pools in place at
     (block_ids, rows); then the chunk's queries attend over the lane's
     gathered blocks, causal at absolute offset ``q_offset`` (0-d tensor)
-    and masked at ``kv_len`` (shape (1,)).
+    and masked at ``kv_len`` (shape (1,)). int8 pools (scale pools given)
+    are written quantized per row and read gathered and dequantized to q's
+    dtype, as in the reference.
     """
     q, k, v = _qkv(params, cfg, x, positions)
-    k_pool[block_ids, :, rows] = k[0].transpose(0, 1).to(k_pool.dtype)  # in place
-    v_pool[block_ids, :, rows] = v[0].transpose(0, 1).to(v_pool.dtype)  # in place
-    k_read = ref.gather_paged_kv(k_pool, table[None])
-    v_read = ref.gather_paged_kv(v_pool, table[None])
+    krows = k[0].transpose(0, 1)                             # (C, Hkv, D)
+    vrows = v[0].transpose(0, 1)
+    if k_scale_pool is not None:
+        _write_int8(k_pool, v_pool, k_scale_pool, v_scale_pool,
+                    (block_ids, slice(None), rows), krows, vrows)
+        tab = table[None]
+        k_read = dequantize_kv(ref.gather_paged_kv(k_pool, tab),
+                               ref.gather_paged_kv(k_scale_pool, tab), q.dtype)
+        v_read = dequantize_kv(ref.gather_paged_kv(v_pool, tab),
+                               ref.gather_paged_kv(v_scale_pool, tab), q.dtype)
+    else:
+        k_pool[block_ids, :, rows] = krows.to(k_pool.dtype)  # in place
+        v_pool[block_ids, :, rows] = vrows.to(v_pool.dtype)  # in place
+        k_read = ref.gather_paged_kv(k_pool, table[None])
+        v_read = ref.gather_paged_kv(v_pool, table[None])
     # chunk attention runs on the masked plain path, as in the reference: it
     # needs both a device-side q_offset and kv_len masking, which the flash
     # prefill kernel does not take; chunks are short, so the O(C * ctx)
@@ -132,18 +190,32 @@ def paged_decode_self_attention(params, cfg: ModelConfig, x: torch.Tensor, *,
                                 block_ids: torch.Tensor, rows: torch.Tensor,
                                 kv_len: torch.Tensor,
                                 window: Optional[int] = None,
-                                backend: str = "auto") -> torch.Tensor:
+                                backend: str = "auto",
+                                k_scale_pool: Optional[torch.Tensor] = None,
+                                v_scale_pool: Optional[torch.Tensor] = None
+                                ) -> torch.Tensor:
     """One-token decode over a paged cache, batched across lanes.
 
     x: (B, 1, d); pools (num_blocks, Hkv, block_size, D); block_tables
     (B, max_blocks) int32; block_ids/rows (B,) write targets (non-live lanes
     already redirected to the null block); kv_len (B,) int32 INCLUDING this
-    token. The new rows are written in place."""
+    token. The new rows are written in place. int8 pools (scale pools
+    (num_blocks, Hkv, block_size, 1) given) are read by
+    ``ops.paged_decode_attention_quant``, whose read path (gather then K2,
+    or K4) comes from the installed autotune cache, else gather."""
     q, k, v = _qkv(params, cfg, x, positions)
-    k_pool[block_ids, :, rows] = k[:, :, 0].to(k_pool.dtype)  # in place
-    v_pool[block_ids, :, rows] = v[:, :, 0].to(v_pool.dtype)  # in place
-    out = ops.paged_decode_attention(q, k_pool, v_pool, block_tables, kv_len,
-                                     window=window,
-                                     softcap=cfg.attn_logit_softcap,
-                                     backend=backend)
+    if k_scale_pool is not None:
+        _write_int8(k_pool, v_pool, k_scale_pool, v_scale_pool,
+                    (block_ids, slice(None), rows), k[:, :, 0], v[:, :, 0])
+        out = ops.paged_decode_attention_quant(
+            q, k_pool, v_pool, k_scale_pool, v_scale_pool, block_tables,
+            kv_len, window=window, softcap=cfg.attn_logit_softcap,
+            backend=backend)
+    else:
+        k_pool[block_ids, :, rows] = k[:, :, 0].to(k_pool.dtype)  # in place
+        v_pool[block_ids, :, rows] = v[:, :, 0].to(v_pool.dtype)  # in place
+        out = ops.paged_decode_attention(q, k_pool, v_pool, block_tables,
+                                         kv_len, window=window,
+                                         softcap=cfg.attn_logit_softcap,
+                                         backend=backend)
     return L.linear(params["o"], _merge_heads(out))

@@ -5,10 +5,10 @@ Queue 1 item 8).
 Public API (``cfg`` is a frozen ``ModelConfig``):
 
     init_params(cfg, generator, dtype, device)               -> params
-    init_cache(cfg, batch_size, max_len, dtype, device)      -> cache
+    init_cache(cfg, batch_size, max_len, dtype, device, kv_quant=) -> cache
     prefill(params, cfg, batch, cache)                       -> (last_logits, cache)
     decode_step(params, cfg, tokens, cache)                  -> (logits, cache)
-    init_paged_cache(cfg, lanes, num_blocks, block_size, ...) -> paged cache
+    init_paged_cache(cfg, lanes, num_blocks, block_size, ..., kv_quant=)
     prefill_paged_chunk(params, cfg, tokens, cache, lane=, n_valid=)
     decode_step_paged(params, cfg, tokens, cache, live=)
 
@@ -17,7 +17,11 @@ into a list of per-layer dicts; a Python loop over that list takes the place
 of ``layer_scan``. Caches are dicts of tensors updated in place (the
 functions still return them, so call sites read like the reference). The
 paged cache holds attention K/V only: SSM and hybrid lanes carry
-fixed-size recurrent state and are served from the dense cache.
+fixed-size recurrent state and are served from the dense cache. With
+``kv_quant`` the dense family's K/V are int8 with per-row float32 scales
+(``k_scale``/``v_scale``, ``kp_scale``/``vp_scale``); every step function
+takes the int8 branch when the cache holds those keys, as the reference
+does.
 """
 from __future__ import annotations
 
@@ -123,10 +127,12 @@ def _hybrid_segments(cfg: ModelConfig):
 # dense cache: K/V, or conv/SSM state (+ shared-attention K/V)
 # ===========================================================================
 def init_cache(cfg: ModelConfig, batch_size: int, max_len: int,
-               dtype=torch.float32, device="cpu") -> Dict[str, torch.Tensor]:
+               dtype=torch.float32, device="cpu",
+               kv_quant: bool = False) -> Dict[str, torch.Tensor]:
     """pos (B,) int32, and per family:
 
-      dense   k/v   (layers, B, Hkv, max_len, hd)
+      dense   k/v   (layers, B, Hkv, max_len, hd); with ``kv_quant`` int8,
+                    and k_scale/v_scale (layers, B, Hkv, max_len, 1) float32
       ssm     conv  (layers, B, conv_width-1, d_inner+2N)  in ``dtype``
               ssm   (layers, B, H, P, N)                   float32
       hybrid  conv/ssm as above, and ak/av (attention calls, B, Hkv,
@@ -139,8 +145,15 @@ def init_cache(cfg: ModelConfig, batch_size: int, max_len: int,
     hd = cfg.resolved_head_dim
     if cfg.family == "dense":
         shape = (cfg.num_layers, batch_size, cfg.num_kv_heads, max_len, hd)
-        cache["k"] = torch.zeros(shape, **z)
-        cache["v"] = torch.zeros(shape, **z)
+        kv_dtype = torch.int8 if kv_quant else dtype
+        cache["k"] = torch.zeros(shape, dtype=kv_dtype, device=device)
+        cache["v"] = torch.zeros(shape, dtype=kv_dtype, device=device)
+        if kv_quant:
+            sshape = shape[:-1] + (1,)
+            cache["k_scale"] = torch.zeros(sshape, dtype=torch.float32,
+                                           device=device)
+            cache["v_scale"] = torch.zeros(sshape, dtype=torch.float32,
+                                           device=device)
         return cache
     s = cfg.ssm
     ch = cfg.d_inner + 2 * s.state_dim
@@ -155,6 +168,18 @@ def init_cache(cfg: ModelConfig, batch_size: int, max_len: int,
         cache["ak"] = torch.zeros(shape, **z)
         cache["av"] = torch.zeros(shape, **z)
     return cache
+
+
+def _scales(cache, i: int, *, paged: bool = False) -> Dict[str, Any]:
+    """Layer i's scale tensors as attention kwargs when the cache is int8,
+    else none (the float branch)."""
+    key = "kp_scale" if paged else "k_scale"
+    if key not in cache:
+        return {}
+    if paged:
+        return {"k_scale_pool": cache["kp_scale"][i],
+                "v_scale_pool": cache["vp_scale"][i]}
+    return {"k_scale": cache["k_scale"][i], "v_scale": cache["v_scale"][i]}
 
 
 def _recurrent_layers(params: Params, cfg: ModelConfig, h: torch.Tensor,
@@ -212,7 +237,8 @@ def prefill(params: Params, cfg: ModelConfig, batch, cache, *,
             h = h + ATT.prefill_attention(
                 lp["attn"], cfg, a, positions=positions,
                 k_cache=cache["k"][i], v_cache=cache["v"][i],
-                window=cfg.sliding_window, backend=backend)
+                window=cfg.sliding_window, backend=backend,
+                **_scales(cache, i))
             h = _mlp_block(lp, cfg, h)
     cache["pos"].fill_(S)                                   # in place
     return _logits(params, cfg, h[:, -1]), cache
@@ -247,7 +273,8 @@ def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor, cache,
             h = h + ATT.decode_self_attention(
                 lp["attn"], cfg, a, positions=positions,
                 k_cache=cache["k"][i], v_cache=cache["v"][i], kv_len=kv_len,
-                window=cfg.sliding_window, backend=backend)
+                window=cfg.sliding_window, backend=backend,
+                **_scales(cache, i))
             h = _mlp_block(lp, cfg, h)
     pos.copy_(kv_len)                                       # in place
     return _logits(params, cfg, h[:, -1]), cache
@@ -270,13 +297,16 @@ NULL_BLOCK = 0
 
 def init_paged_cache(cfg: ModelConfig, lanes: int, num_blocks: int,
                      block_size: int, dtype=torch.float32, device="cpu", *,
-                     max_blocks_per_lane: Optional[int] = None
-                     ) -> Dict[str, torch.Tensor]:
+                     max_blocks_per_lane: Optional[int] = None,
+                     kv_quant: bool = False) -> Dict[str, torch.Tensor]:
     """Paged KV cache: one shared block pool plus per-lane tables.
 
       kp/vp         (layers, num_blocks, Hkv, block_size, hd)  shared pool
       block_tables  (lanes, max_blocks_per_lane) int32         logical->physical
       pos           (lanes,) int32                             valid context
+
+    ``kv_quant`` stores int8 blocks with per-row float32 scale pools
+    kp_scale/vp_scale (layers, num_blocks, Hkv, block_size, 1).
     """
     _check_family(cfg)
     if cfg.family not in PAGED_FAMILIES:
@@ -287,11 +317,19 @@ def init_paged_cache(cfg: ModelConfig, lanes: int, num_blocks: int,
     mb = max_blocks_per_lane if max_blocks_per_lane is not None else num_blocks
     shape = (cfg.num_layers, num_blocks, cfg.num_kv_heads, block_size,
              cfg.resolved_head_dim)
-    return {"pos": torch.zeros((lanes,), dtype=torch.int32, device=device),
-            "block_tables": torch.full((lanes, mb), NULL_BLOCK,
-                                       dtype=torch.int32, device=device),
-            "kp": torch.zeros(shape, dtype=dtype, device=device),
-            "vp": torch.zeros(shape, dtype=dtype, device=device)}
+    kv_dtype = torch.int8 if kv_quant else dtype
+    cache = {"pos": torch.zeros((lanes,), dtype=torch.int32, device=device),
+             "block_tables": torch.full((lanes, mb), NULL_BLOCK,
+                                        dtype=torch.int32, device=device),
+             "kp": torch.zeros(shape, dtype=kv_dtype, device=device),
+             "vp": torch.zeros(shape, dtype=kv_dtype, device=device)}
+    if kv_quant:
+        sshape = shape[:-1] + (1,)
+        cache["kp_scale"] = torch.zeros(sshape, dtype=torch.float32,
+                                        device=device)
+        cache["vp_scale"] = torch.zeros(sshape, dtype=torch.float32,
+                                        device=device)
+    return cache
 
 
 def prefill_paged_chunk(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
@@ -328,7 +366,7 @@ def prefill_paged_chunk(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             lp["attn"], cfg, a, positions=positions, k_pool=cache["kp"][i],
             v_pool=cache["vp"][i], table=table, block_ids=block_ids, rows=rows,
             kv_len=kv_len, q_offset=start, window=cfg.sliding_window,
-            backend=backend)
+            backend=backend, **_scales(cache, i, paged=True))
         h = _mlp_block(lp, cfg, h)
     cache["pos"][lane] = kv_len[0]                           # in place
     last = h[0, max(n_valid - 1, 0)]
@@ -366,7 +404,7 @@ def decode_step_paged(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             lp["attn"], cfg, a, positions=positions, k_pool=cache["kp"][i],
             v_pool=cache["vp"][i], block_tables=tables, block_ids=block_ids,
             rows=rows, kv_len=kv_len, window=cfg.sliding_window,
-            backend=backend)
+            backend=backend, **_scales(cache, i, paged=True))
         h = _mlp_block(lp, cfg, h)
     pos.copy_(torch.where(live, kv_len, pos))                # in place
     return _logits(params, cfg, h[:, -1]), cache

@@ -39,7 +39,8 @@ class InferenceEngine:
     """Single-model engine with a fixed max context."""
 
     def __init__(self, cfg: ModelConfig, params, *, max_len: int = 512,
-                 backend: str = "auto", dtype=torch.float32, device=None):
+                 backend: str = "auto", dtype=torch.float32, device=None,
+                 kv_quant: bool = False):
         self.device = resolve_device(device)
         got = params["embed"]["emb"].device
         if got.type != self.device.type:
@@ -50,18 +51,20 @@ class InferenceEngine:
         self.max_len = max_len
         self.backend = backend
         self.dtype = dtype
+        self.kv_quant = kv_quant      # int8 K/V with per-row scales
 
     # ------------------------------------------------------------------ api
     def new_cache(self, batch_size: int):
         return M.init_cache(self.cfg, batch_size, self.max_len, self.dtype,
-                            self.device)
+                            self.device, kv_quant=self.kv_quant)
 
     def new_paged_cache(self, lanes: int, num_blocks: int, block_size: int):
         """Paged cache sized so one lane can hold up to ``max_len`` context."""
         mb = kv_blocks_needed(self.max_len, block_size)
         return M.init_paged_cache(self.cfg, lanes, num_blocks, block_size,
                                   self.dtype, self.device,
-                                  max_blocks_per_lane=mb)
+                                  max_blocks_per_lane=mb,
+                                  kv_quant=self.kv_quant)
 
     def prefill_chunk(self, tokens: torch.Tensor, cache, lane: int,
                       n_valid: int):

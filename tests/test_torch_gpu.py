@@ -92,6 +92,20 @@ def test_wrappers_raise_on_inputs_the_kernels_do_not_take():
 
 
 @pytest.mark.gpu
+def test_flash_refuses_a_tile_over_shared_memory():
+    """block_q 128 x block_k 128 fits at head dim 64, not at 128: the
+    wrapper says so before the launch would be refused."""
+    _need_card()
+    q = torch.zeros((1, 2, 128, 128), device="cuda")
+    with pytest.raises(ValueError, match="shared memory"):
+        FA.flash_attention(q, q, q, block_q=128, block_k=128)
+    h = q[..., :64].contiguous()
+    torch.testing.assert_close(FA.flash_attention(h, h, h, block_q=128,
+                                                  block_k=128),
+                               FA.flash_attention_ref(h, h, h))
+
+
+@pytest.mark.gpu
 def test_launch_counters_count_kernel_launches():
     _need_card()
     q = torch.zeros((1, 2, 8, 64), device="cuda")
@@ -178,3 +192,126 @@ def test_serve_entry_point_runs_on_card(arch, kernels, monkeypatch, capsys):
     out = capsys.readouterr().out
     assert out.count("tokens=[") == 4 and "fleet report" in out
     assert all(fn.launches > b for fn, b in zip(kernels, before))
+
+
+# ------------------------------------------------------------------ K4
+QUANT_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+GATHER_TOL = 3e-5     # fused vs the gather oracle, tests/test_autotune.py
+
+
+def _int8_inputs(gen, dtype, B, Hq, Hkv, D, bs, num_blocks, kv_len):
+    """int8 pools and float32 scale pools with random contents; each lane's
+    table holds distinct random blocks (never the null block 0), dead
+    entries 0."""
+    mb = -(-max(kv_len) // bs) + 1
+    q = _randn(gen, (B, Hq, 1, D), dtype)
+    kp = torch.randint(-127, 128, (num_blocks, Hkv, bs, D), generator=gen,
+                       device="cuda").to(torch.int8)
+    vp = torch.randint(-127, 128, (num_blocks, Hkv, bs, D), generator=gen,
+                       device="cuda").to(torch.int8)
+    ks = torch.rand((num_blocks, Hkv, bs, 1), generator=gen,
+                    device="cuda") * 0.015 + 0.005
+    vs = torch.rand((num_blocks, Hkv, bs, 1), generator=gen,
+                    device="cuda") * 0.015 + 0.005
+    perm = torch.randperm(num_blocks - 1, generator=gen, device="cuda") + 1
+    tables = torch.zeros((B, mb), dtype=torch.int32, device="cuda")
+    used = 0
+    for b, n in enumerate(kv_len):
+        nb = -(-n // bs)
+        tables[b, :nb] = perm[used:used + nb].to(torch.int32)
+        used += nb
+    kvl = torch.tensor(kv_len, dtype=torch.int32, device="cuda")
+    return q, kp, vp, ks, vs, tables, kvl
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [
+    dict(B=4, Hq=32, Hkv=8, D=128, bs=16, nb=1024, kv_len=[40, 130, 300, 528]),
+    dict(B=3, Hq=4, Hkv=1, D=64, bs=8, nb=64, kv_len=[1, 45, 96])])
+@pytest.mark.parametrize("kw", [{}, {"softcap": 30.0}, {"window": 64},
+                                {"softcap": 20.0, "window": 100}])
+def test_int8_kernel_matches_plain_and_gather_on_card(dtype, shape, kw):
+    """K4 against its plain version (the scale-folded read) at mistral-7b's
+    serving shape and a reduced D = 64 one, and, in float32, against the
+    gather oracle."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    inp = _int8_inputs(gen, dtype, shape["B"], shape["Hq"], shape["Hkv"],
+                       shape["D"], shape["bs"], shape["nb"], shape["kv_len"])
+    got = DA.paged_decode_attention_int8(*inp, **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == inp[0].shape
+    tol = QUANT_TOL[dtype]
+    torch.testing.assert_close(
+        got.float(), DA.paged_decode_attention_int8_ref(*inp, **kw).float(),
+        atol=tol, rtol=tol)
+    if dtype == torch.float32:
+        torch.testing.assert_close(
+            got, ref.paged_decode_attention_quant(*inp[:6], kv_len=inp[6],
+                                                  **kw),
+            atol=GATHER_TOL, rtol=GATHER_TOL)
+
+
+@pytest.mark.gpu
+def test_int8_read_path_follows_the_cache_on_card():
+    """``ops.paged_decode_attention_quant`` on CUDA tensors: with no cache
+    the gather path launches K2 and not K4; a "cuda" cache entry that routes
+    ``fused`` launches K4 (and no K2)."""
+    _need_card()
+    from repro_torch.kernels import autotune as AT
+    from repro_torch.kernels import ops
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    inp = _int8_inputs(gen, torch.bfloat16, 4, 32, 8, 128, 16, 1024,
+                       [40, 130, 300, 528])
+    bucket = AT.shape_bucket("paged_decode_quant", b=4,
+                             c=inp[5].shape[1] * 16)
+    k2, k4 = DA.decode_attention.launches, \
+        DA.paged_decode_attention_int8.launches
+    AT.install(None)
+    gather = ops.paged_decode_attention_quant(*inp)
+    assert (DA.decode_attention.launches, DA.paged_decode_attention_int8
+            .launches) == (k2 + 1, k4)
+    entry = AT.TunedEntry(kernel="paged_decode_quant", backend="cuda",
+                          bucket=bucket, params={"impl": "fused"}, t_s=1.0,
+                          t_default_s=1.0, noise_frac=0.0, flops=0.0,
+                          bytes=0.0, ctx=0.0)
+    prev = AT.install(AT.AutotuneCache("test", "cuda", entries=[entry]))
+    try:
+        fused = ops.paged_decode_attention_quant(*inp)
+    finally:
+        AT.install(prev)
+    assert (DA.decode_attention.launches, DA.paged_decode_attention_int8
+            .launches) == (k2 + 1, k4 + 1)
+    torch.testing.assert_close(fused.float(), gather.float(), atol=2e-2,
+                               rtol=2e-2)
+
+
+@pytest.mark.gpu
+def test_int8_wrapper_raises_on_inputs_it_does_not_take():
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    q, kp, vp, ks, vs, tables, kvl = _int8_inputs(
+        gen, torch.float32, 2, 4, 2, 64, 16, 16, [5, 30])
+    with pytest.raises(ValueError, match="int8"):
+        DA.paged_decode_attention_int8(q, kp.float(), vp.float(), ks, vs,
+                                       tables, kvl)
+    with pytest.raises(ValueError, match="k_scale_pool"):
+        DA.paged_decode_attention_int8(q, kp, vp, ks[..., 0].contiguous(), vs,
+                                       tables, kvl)
+    with pytest.raises(ValueError, match="float32"):
+        DA.paged_decode_attention_int8(q, kp, vp, ks.bfloat16(), vs, tables,
+                                       kvl)
+    with pytest.raises(ValueError, match="contiguous"):
+        DA.paged_decode_attention_int8(q, kp.transpose(0, 1).contiguous()
+                                       .transpose(0, 1), vp, ks, vs, tables,
+                                       kvl)
+    with pytest.raises(ValueError, match="head dim"):
+        DA.paged_decode_attention_int8(q[..., :32].contiguous(),
+                                       kp[..., :32].contiguous(),
+                                       vp[..., :32].contiguous(), ks, vs,
+                                       tables, kvl)
+    before = DA.paged_decode_attention_int8.launches
+    DA.paged_decode_attention_int8(q, kp, vp, ks, vs, tables, kvl)
+    DA.paged_decode_attention_int8_ref(q, kp, vp, ks, vs, tables, kvl)
+    assert DA.paged_decode_attention_int8.launches == before + 1
