@@ -7,16 +7,24 @@ Phases, each printing its own lines; any failure exits non-zero:
 
   1. device  — card name, count, and nvidia-smi's name and power limit;
   2. build   — the Hopper kernels of src/repro_torch/csrc, built with nvcc
-               (build seconds and -Xptxas -v output);
+               (build seconds and -Xptxas -v output, and a line per K1 v3 and
+               K2 v3 kernel with its registers, shared memory and spills; a
+               spill in K1 v3 fails);
   3. kernels — K1 flash prefill, K2 dense decode and K3 paged decode held
                against their plain versions at mistral-7b's attention shapes,
                and K1 and K2 at zamba2-1.2b's shared block's (32 heads, no
                grouping, D = 64, window 8192) (tolerances bf16 2e-2, f32
-               2e-5, rows with a valid key only); K5, the SSD chunked scan,
-               against its chunked plain version and the sequential oracle
-               at mamba2-130m's and zamba2-1.2b's shapes (chunk 128, S = 512
-               and a ragged 300) and at their reduced shapes (P = N = 32,
-               chunk 32), f32 2e-5, bf16 5e-2, y and the final state; then
+               2e-5, rows with a valid key only): K1 bf16 (v3, wgmma) at
+               Sq 37/300/512, q_offset 64 and -4, softcap, window 17,
+               sk_valid < Sk, D 64/128, Hkv 8/32 and every tile; K2 (v3,
+               split-KV) at kv_len on both sides of a split edge, both
+               dtypes, D 64/128, captured into a CUDA graph, one count per
+               call; the tiles each K1 kernel refuses; K5, the SSD chunked
+               scan, against its chunked plain version and the sequential
+               oracle at mamba2-130m's and zamba2-1.2b's shapes (chunk 128,
+               S = 512 and a ragged 300) and at their reduced shapes (P = N
+               = 32, chunk 32), f32 2e-5, bf16 5e-2, y and the final state;
+               then
                K4, the int8 paged decode, against its plain version (the
                scale-folded read) at mistral-7b's serving shape and a
                reduced D = 64 one (f32 2e-5, bf16 2e-2) and against the
@@ -128,6 +136,44 @@ def phase_build():
         f"build_seconds={info.seconds:.2f}")
     if info.log:
         say(info.log.rstrip())
+    spills = []
+    for kern, regs, smem, spill in _ptxas_report(info.log):
+        say(f"  ptxas {kern}: {regs} registers, {smem} bytes smem, "
+            f"spill stores/loads {spill} bytes")
+        if spill != "0/0" and "flash_fwd_wgmma" in kern:
+            spills.append(kern)
+    if spills:
+        fail(f"ptxas reports spills in K1 v3's consumers: {spills}")
+
+
+V3_KERNELS = ("flash_fwd_wgmma", "decode_split_kernel",
+              "decode_combine_kernel")
+
+
+def _ptxas_report(log):
+    """(kernel, registers, static smem bytes, "stores/loads" spill bytes) of
+    every K1 v3 and K2 v3 instantiation in nvcc's -Xptxas -v output."""
+    import re
+    out, name, spill = [], None, "?"
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1) if any(k in m.group(1) for k in V3_KERNELS) \
+                else None
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spill = f"{m.group(1)}/{m.group(2)}"
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            smem = re.search(r"(\d+) bytes smem", line)
+            out.append((name, int(m.group(1)),
+                        int(smem.group(1)) if smem else 0, spill))
+            name, spill = None, "?"
+    return out
 
 
 # --------------------------------------------------------------------- phase 3
@@ -171,6 +217,19 @@ def check_flash(torch, gen):
     for dt in (torch.float32, torch.bfloat16):
         cases += [dict(dtype=dt, Sq=512, Sk=512, **z),
                   dict(dtype=dt, Sq=200, Sk=200, **z)]
+    # v3 (bf16, wgmma) at its edges: ragged Sq, q offsets, softcap, window,
+    # sk_valid, both head dims and both GQA layouts, every tile at one shape
+    bf = torch.bfloat16
+    cases += [dict(dtype=bf, Sq=300, Sk=300),
+              dict(dtype=bf, Sq=37, Sk=101, q_offset=64),
+              dict(dtype=bf, Sq=40, Sk=40, q_offset=-4, d=64),
+              dict(dtype=bf, Sq=64, Sk=64, softcap=30.0),
+              dict(dtype=bf, Sq=200, Sk=200, d=64, window=17),
+              dict(dtype=bf, Sq=100, Sk=100, sk_valid=77),
+              dict(dtype=bf, Sq=128, Sk=128, hkv=32)]
+    cases += [dict(dtype=bf, Sq=300, Sk=300, d=d, block_q=bq, block_k=bk)
+              for d in (64, 128) for bq in FA.TILES[bf][0]
+              for bk in FA.TILES[bf][1]]
     for c in cases:
         dt, Sq, Sk, d = c["dtype"], c["Sq"], c["Sk"], c.get("d", D)
         hq, hkv = c.get("hq", HQ), c.get("hkv", HKV)
@@ -178,23 +237,50 @@ def check_flash(torch, gen):
         k = _rand(torch, gen, (1, hkv, Sk, d), dt)
         v = _rand(torch, gen, (1, hkv, Sk, d), dt)
         kw = dict(causal=True, window=c.get("window"),
-                  softcap=c.get("softcap"), q_offset=c.get("q_offset", 0))
-        got = FA.flash_attention(q, k, v, **kw)
+                  softcap=c.get("softcap"), q_offset=c.get("q_offset", 0),
+                  sk_valid=c.get("sk_valid"))
+        tiles = {t: c[t] for t in ("block_q", "block_k") if t in c}
+        got = FA.flash_attention(q, k, v, **kw, **tiles)
         want = FA.flash_attention_ref(q, k, v, **kw)
         torch.cuda.synchronize()
+        valid = Sk if kw["sk_valid"] is None else kw["sk_valid"]
         rows = _flash_valid_rows(torch, 1, hq, Sq, kw["q_offset"],
-                                 kw["window"], Sk)
+                                 kw["window"], valid)
         tol = TOL[str(dt).split(".")[1]]
         err, ok = _err_on_valid(torch, got, want, rows, tol)
+        ok = ok and torch.count_nonzero(got[~rows]).item() == 0
         say(f"  K1 flash {str(dt)[6:]:8s} Hq={hq} Hkv={hkv} Sq={Sq:4d} "
             f"Sk={Sk:4d} D={d:3d} window={kw['window']} "
-            f"softcap={kw['softcap']} q_offset={kw['q_offset']}: "
+            f"softcap={kw['softcap']} q_offset={kw['q_offset']} "
+            f"sk_valid={kw['sk_valid']} tiles={tiles or 'default'}: "
             f"max_abs_err={err:.3e} {'ok' if ok else 'MISMATCH'}")
         if not ok:
-            fail(f"K1 flash_attention disagrees with its plain version: {c}")
+            fail(f"K1 flash_attention disagrees with its plain version (or a "
+                 f"row with no valid key is not 0): {c}")
         key = "flash_attention" + (f"@{c['arch']}" if "arch" in c else "")
         worst[key] = max(worst[key], err)
+    _check_flash_refusals(torch, FA)
     return worst
+
+
+def _check_flash_refusals(torch, FA):
+    """Each K1 kernel refuses the tiles it does not take, before a launch."""
+    q = torch.zeros((1, 2, 128, D), device="cuda")
+    refusals = [(q.bfloat16(), dict(block_q=32), "takes block_q"),
+                (q.bfloat16(), dict(block_k=96), "takes block_q"),
+                (q, dict(block_q=128, block_k=128), "shared memory")]
+    before = FA.flash_attention.launches
+    for t, tiles, match in refusals:
+        try:
+            FA.flash_attention(t, t, t, **tiles)
+        except ValueError as e:
+            if match not in str(e):
+                fail(f"K1 refused {tiles} ({t.dtype}) for another reason: {e}")
+        else:
+            fail(f"K1 took a tile its {t.dtype} kernel does not: {tiles}")
+    if FA.flash_attention.launches != before:
+        fail("a refused K1 call counted a launch")
+    say(f"  K1 refusals ok: {[(str(t.dtype)[6:], k) for t, k, _ in refusals]}")
 
 
 def _decode_inputs(torch, gen, dt, B, Smax, d, kv_len, hq=HQ, hkv=HKV):
@@ -236,7 +322,64 @@ def check_decode(torch, gen):
             fail(f"K2 decode_attention disagrees with its plain version: {c}")
         key = "decode_attention" + (f"@{c['arch']}" if "arch" in c else "")
         worst[key] = max(worst[key], err)
+    # v3's split edges: kv_len on both sides of a split of block_k keys
+    for dt in (torch.float32, torch.bfloat16):
+        for d in (64, 128):
+            for bk in (32, 64, 128):
+                edges = [1, bk - 1, bk, bk + 1, MAX_LEN]
+                q, kc, vc, kvl = _decode_inputs(torch, gen, dt, len(edges),
+                                                MAX_LEN, d, edges)
+                for kw in ({}, {"window": 64}, {"softcap": 20.0}):
+                    got = DA.decode_attention(q, kc, vc, kvl, block_k=bk,
+                                              **kw)
+                    want = DA.decode_attention_ref(q, kc, vc, kvl, **kw)
+                    torch.cuda.synchronize()
+                    rows = (kvl > 0)[:, None, None].expand(len(edges), HQ, 1)
+                    err, ok = _err_on_valid(torch, got, want, rows,
+                                            TOL[str(dt)[6:]])
+                    say(f"  K2 edges  {str(dt)[6:]:8s} D={d:3d} "
+                        f"block_k={bk:3d} kv_len={edges} {kw}: "
+                        f"max_abs_err={err:.3e} "
+                        f"{'ok' if ok else 'MISMATCH'}")
+                    if not ok:
+                        fail(f"K2 split edges disagree: {dt} D={d} "
+                             f"block_k={bk} {kw}")
+                    worst["decode_attention"] = max(
+                        worst["decode_attention"], err)
+    _check_decode_graph(torch, gen, DA)
     return worst
+
+
+def _check_decode_graph(torch, gen, DA):
+    """K2 (split and combine, one call) captured into a CUDA graph: replays
+    equal the eager call, kv_len is read on the device at replay, and the
+    count moves by one per call."""
+    q, kc, vc, kvl = _decode_inputs(torch, gen, torch.bfloat16, 4, MAX_LEN, D,
+                                    [40, 130, 300, 528])
+    before = DA.decode_attention.launches
+    eager = DA.decode_attention(q, kc, vc, kvl)
+    if DA.decode_attention.launches != before + 1:
+        fail("K2's count did not move by one for one call")
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out = DA.decode_attention(q, kc, vc, kvl)
+    g.replay()
+    torch.cuda.synchronize()
+    same = torch.equal(out, eager)
+    kvl.copy_(torch.tensor([41, 131, 301, 529], dtype=torch.int32))
+    g.replay()
+    want = DA.decode_attention_ref(q, kc, vc, kvl)
+    torch.cuda.synchronize()
+    err, ok = _err_on_valid(torch, out, want,
+                            torch.ones(out.shape[:3], dtype=torch.bool,
+                                       device="cuda"), TOL["bfloat16"])
+    say(f"  K2 graph: replay equals eager {same}; after kv_len += 1 "
+        f"max_abs_err={err:.3e}; launches "
+        f"{DA.decode_attention.launches - before} for 2 calls "
+        f"{'ok' if same and ok else 'MISMATCH'}")
+    if not (same and ok) or DA.decode_attention.launches != before + 2:
+        fail("K2 under CUDA graph capture")
 
 
 def _paged_inputs(torch, gen, dt, bs, d, kv_len, num_blocks, max_blocks):
@@ -459,6 +602,7 @@ def time_kernels(torch, gen):
         library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
             q, k_rep, v_rep, is_causal=True)),
         bound_ms=b_ms, bound_by=b_by,
+        tiles=_flash_tiles(torch, FA, q, k, v, kw),
         shape=f"B=1 Hq={HQ} Hkv={HKV} Sq=Sk={S} D={D} bf16 causal window=4096")
 
     # K1 at zamba2-1.2b's shared block: 32 heads, no grouping, D = 64
@@ -473,6 +617,7 @@ def time_kernels(torch, gen):
         library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
             q, k, v, is_causal=True)),
         bound_ms=b_ms, bound_by=b_by,
+        tiles=_flash_tiles(torch, FA, q, k, v, kw),
         shape=f"B=1 Hq=Hkv={ZHQ} Sq=Sk={S} D={ZD} bf16 causal "
               f"window={ZWINDOW}")
 
@@ -492,7 +637,9 @@ def time_kernels(torch, gen):
         library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
             qd, k_live, v_live)),
         bound_ms=b_ms, bound_by=b_by,
-        shape=f"B=1 Hq={HQ} Hkv={HKV} Smax={MAX_LEN} kv_len={kvl_n} D={D} bf16")
+        tiles=_decode_tiles(torch, DA, qd, kc, vc, kvl, 4096),
+        shape=f"B=1 Hq={HQ} Hkv={HKV} Smax={MAX_LEN} kv_len={kvl_n} D={D} "
+              f"bf16")
 
     # K2 at zamba2-1.2b's shared block
     qz, kz, vz, kvlz = _decode_inputs(torch, gen, dt, 1, MAX_LEN, ZD, [kvl_n],
@@ -508,6 +655,7 @@ def time_kernels(torch, gen):
         library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
             qz, kz_live, vz_live)),
         bound_ms=b_ms, bound_by=b_by,
+        tiles=_decode_tiles(torch, DA, qz, kz, vz, kvlz, ZWINDOW),
         shape=f"B=1 Hq=Hkv={ZHQ} Smax={MAX_LEN} kv_len={kvl_n} D={ZD} bf16")
 
     # K3: paged-batcher decode, 4 lanes of a 1024-block pool, block 16
@@ -575,7 +723,23 @@ def time_kernels(torch, gen):
         say(f"  time {name:34s} {r['shape']}: ms={r['ms']:.4f} "
             f"plain_ms={r['plain_ms']:.4f} library_ms={lib}{extra} "
             f"bound_ms={r['bound_ms']:.5f} ({r['bound_by']})")
+        if "tiles" in r:
+            say(f"  tiles {name:33s} ms by tile: " + " ".join(
+                f"{t}={ms:.4f}" for t, ms in r["tiles"].items()))
     return out
+
+
+def _flash_tiles(torch, FA, q, k, v, kw):
+    """K1 bf16 at every (block_q, block_k) its kernel takes."""
+    tq, tk = FA.TILES[torch.bfloat16]
+    return {f"{bq}x{bk}": time_ms(torch, lambda: FA.flash_attention(
+        q, k, v, block_q=bq, block_k=bk, **kw)) for bq in tq for bk in tk}
+
+
+def _decode_tiles(torch, DA, q, kc, vc, kvl, window):
+    """K2 at each split size block_k."""
+    return {f"block_k={bk}": time_ms(torch, lambda: DA.decode_attention(
+        q, kc, vc, kvl, window=window, block_k=bk)) for bk in (32, 64, 128)}
 
 
 def phase_kernels(torch):

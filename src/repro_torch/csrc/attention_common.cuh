@@ -1,7 +1,10 @@
-// Shared device code of the attention kernels (flash prefill; dense, paged
-// and int8 paged decode): type conversion, warp reductions, the K/V tile
-// loaders (float or bf16, and int8 with per-row scales) and the
-// online-softmax update of a group of query rows against one tile.
+// Shared device code of the CUDA-core attention kernels (K1's float32
+// flash prefill, v2; paged and int8 paged decode, K3 and K4): type
+// conversion, warp reductions, the K/V tile loaders (float or bf16, and int8
+// with per-row scales) and the online-softmax update of a group of query
+// rows against one tile. K1's bf16 kernel (v3, wgmma) and K2 (split-KV)
+// use only its constants and small helpers (conversion, 16-byte loads, the
+// shared-memory limit).
 //
 // Layout in shared memory (all float32, whatever the input type):
 //   q   [rows][D]      queries of the block, pre-scaled by D^-0.5
@@ -19,8 +22,7 @@
 // computes the scores of key j for the R rows (one K read serves R rows), the
 // warp reduces max and sum with shuffles, and lane i accumulates columns
 // i, i+32, ... of p @ V for the R rows (one V read serves R rows). Everything
-// is float32 FMA on the CUDA cores; tensor-core tiles (wgmma), TMA and
-// split-KV are later work (ROADMAP Queue 2).
+// is float32 FMA on the CUDA cores.
 #pragma once
 
 #include <cuda_runtime.h>

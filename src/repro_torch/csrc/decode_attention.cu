@@ -15,31 +15,51 @@
 // writes int8 * scale as float32 into the shared tile that the float path
 // fills, so the dequantized pool never exists in device memory.
 //
-// The G = Hq / Hkv query heads that share one KV head are the rows of one
-// block, as the TPU kernel packs them into the rows of one matmul. One block
-// per (KV head, lane) loops over its K/V tiles up to kv_len; the online
-// softmax carry that the TPU kept in VMEM across sequential grid steps is
-// that loop's state. Tiles left of the window are never loaded. A block
-// reads its own kv_len and, for K3 and K4, its own table entries (there is
-// no scalar prefetch on this card).
-//
 // Bound on this card: G·2·kv_len·D multiply-adds against kv_len·2·D
 // elements read, about G/2 operations per byte in bf16, so all three are
 // bound by bytes; K4 reads D + 4 bytes per key row and head (int8 values
-// and a float32 scale) where K3 reads 2·D in bf16, about half. This version
-// launches only B·Hkv blocks, which leaves most of the 132 SMs idle at
-// serving batch sizes (K4 as K3); splitting the KV axis across blocks with a
-// combine pass, and tensor-core tiles with G padded to 16 rows, are later
-// work (ROADMAP).
+// and a float32 scale) where K3 reads 2·D in bf16, about half. A byte-bound
+// kernel reaches the card's memory rate only when most of the 132 SMs issue
+// loads at once.
+//
+// K2 (v3, split-KV): the TPU kernel walks the cache in order, carrying the
+// online softmax (m, l, acc) in VMEM across grid steps. Here the KV axis is
+// split across blocks instead: grid (splits, Hkv, B), splits =
+// ceil(Smax / block_k) fixed on the host from Smax (no host sync, so the
+// launch captures into a CUDA graph), each block owning block_k keys of one
+// (lane, KV head) and all G = Hq / Hkv query heads that share it, as the TPU
+// kernel packs them into the rows of one matmul. A block reads its own
+// kv_len; one whose keys lie wholly past kv_len or left of the window
+// writes l = 0 and returns. Inside a block the warps split the keys: each
+// warp reads its keys' K and V rows once with 16-byte loads, several in
+// flight, scores them against the query rows (float32 in registers, one row
+// at a time when G = 1, else four) and keeps its own (m, l, acc); there is
+// no shared K/V tile and no __syncthreads in the key loop. The warps' partials
+// merge in shared memory into one float32 partial (acc[D], m, l) per query
+// head and split, written to a workspace (B, Hq, splits, D + 2) that the
+// wrapper allocates. A second launch on the same stream (the combine, one
+// block per (lane, query head)) merges the live splits with the usual
+// max-rescale and writes the output in q's dtype: one call is two device
+// kernels. Both dtypes run it on the CUDA cores in float32 (tensor cores buy
+// nothing for a byte-bound kernel); the split changes only the order of
+// summation.
+//
+// K3 and K4 (paged): one block per (KV head, lane), the G query heads as its
+// rows, loops over 128-key tiles staged in shared memory up to kv_len
+// (attention_common.cuh); tiles left of the window are never loaded, and a
+// block reads its own kv_len and table entries (no scalar prefetch on this
+// card). They launch only B·Hkv blocks, which leaves most of the SMs idle
+// at serving batch sizes; split-KV as in K2 is later work (ROADMAP).
 #include <type_traits>
 
 #include "attention_common.cuh"
 
 namespace repro_torch {
 
-// KV is the pools' element type: T (K2, K3) or int8_t (K4, paged only,
-// with scale pools ks and vs).
-template <typename T, typename KV, int D, bool PAGED>
+// ------------------------------------------------ K3, K4: paged caches
+// KV is the pools' element type: T (K3) or int8_t (K4, with scale pools ks
+// and vs).
+template <typename T, typename KV, int D>
 __global__ void __launch_bounds__(kThreads)
 decode_kernel(const T* __restrict__ q, const KV* __restrict__ k,
               const KV* __restrict__ v, const float* __restrict__ ks,
@@ -48,7 +68,6 @@ decode_kernel(const T* __restrict__ q, const KV* __restrict__ k,
               int Hkv, int span, int max_blocks, int window, float softcap,
               float scale, int bk) {
   constexpr bool QUANT = std::is_same<KV, int8_t>::value;
-  static_assert(!QUANT || PAGED, "the int8 read is paged only");
   extern __shared__ __align__(16) float smem[];
   const int hk = blockIdx.x;
   const int b = blockIdx.y;
@@ -60,21 +79,17 @@ decode_kernel(const T* __restrict__ q, const KV* __restrict__ k,
   const size_t qoff = ((size_t)b * Hq + (size_t)hk * G) * D;
   init_rows<T, D>(s, q + qoff, G, scale);
 
-  // span: Smax for the dense cache, block_size for the pools
-  const int limit = PAGED ? span * max_blocks : span;
+  // span: the pools' block_size
+  const int limit = span * max_blocks;
   const int kvl = kv_len[b];
   const int k_end = min(kvl, limit);
   int k_begin = window > 0 ? max(0, kvl - window) : 0;
   k_begin = (k_begin / bk) * bk;
 
-  const int* table = PAGED ? tables + (size_t)b * max_blocks : nullptr;
+  const int* table = tables + (size_t)b * max_blocks;
   auto row_ptr = [=](int kpos) -> size_t {
-    if constexpr (PAGED) {
-      const int blk = table[kpos / span];
-      return (((size_t)blk * Hkv + hk) * span + kpos % span) * D;
-    } else {
-      return (((size_t)b * Hkv + hk) * span + kpos) * D;
-    }
+    const int blk = table[kpos / span];
+    return (((size_t)blk * Hkv + hk) * span + kpos % span) * D;
   };
   auto valid = [=](int, int kpos) {
     bool ok = kpos < k_end;
@@ -100,14 +115,14 @@ decode_kernel(const T* __restrict__ q, const KV* __restrict__ k,
   }
 }
 
-template <typename T, typename KV, int D, bool PAGED>
+template <typename T, typename KV, int D>
 static int launch_decode(const void* q, const void* k, const void* v,
                          const float* ks, const float* vs, const int* tables,
                          const int* kv_len, void* o, int B, int Hq, int Hkv,
                          int span, int max_blocks, int window, float softcap,
                          float scale, int bk, cudaStream_t stream) {
   const size_t smem = smem_floats<D>(Hq / Hkv, bk) * sizeof(float);
-  auto kern = decode_kernel<T, KV, D, PAGED>;
+  auto kern = decode_kernel<T, KV, D>;
   static size_t allowed = 0;
   if (!raise_smem_limit(kern, smem, allowed)) return (int)cudaGetLastError();
   dim3 grid(Hkv, B);
@@ -120,7 +135,7 @@ static int launch_decode(const void* q, const void* k, const void* v,
 
 // q/out dtype 0 = float32, 1 = bfloat16; head dim 64 or 128. QUANT: int8
 // pools with float32 scale pools, else pools of q's type.
-template <bool PAGED, bool QUANT>
+template <bool QUANT>
 static int dispatch_decode(int dtype, int head_dim, const void* q,
                            const void* k, const void* v, const float* ks,
                            const float* vs, const int* tables,
@@ -130,9 +145,8 @@ static int dispatch_decode(int dtype, int head_dim, const void* q,
                            cudaStream_t st) {
 #define REPRO_DECODE(T, D)                                                  \
   return launch_decode<T, typename std::conditional<QUANT, int8_t, T>::type, \
-                       D, PAGED>(q, k, v, ks, vs, tables, kv_len, o, B, Hq, \
-                                 Hkv, span, max_blocks, window, softcap,    \
-                                 scale, bk, st)
+                       D>(q, k, v, ks, vs, tables, kv_len, o, B, Hq, Hkv,   \
+                          span, max_blocks, window, softcap, scale, bk, st)
   if (dtype == 0 && head_dim == 64) REPRO_DECODE(float, 64);
   if (dtype == 0 && head_dim == 128) REPRO_DECODE(float, 128);
   if (dtype == 1 && head_dim == 64) REPRO_DECODE(__nv_bfloat16, 64);
@@ -141,23 +155,272 @@ static int dispatch_decode(int dtype, int head_dim, const void* q,
   return (int)cudaErrorInvalidValue;
 }
 
+// ------------------------------------------------ K2 v3: split-KV, dense
+constexpr int kSplitSteps = 4;  // warp steps whose loads are in flight
+
+// 16 raw bytes as floats.
+__device__ __forceinline__ void unpack16(const uint4& r, float (&o)[4]) {
+  o[0] = __uint_as_float(r.x);
+  o[1] = __uint_as_float(r.y);
+  o[2] = __uint_as_float(r.z);
+  o[3] = __uint_as_float(r.w);
+}
+__device__ __forceinline__ void unpack16(const uint4& r, float (&o)[8]) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&r);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    o[2 * i] = f.x;
+    o[2 * i + 1] = f.y;
+  }
+}
+
+// R: query rows a warp scores per pass over its keys (1 when G = 1, else
+// 4; G > R takes several passes, the later ones reading K/V from cache).
+template <typename T, int D, int R>
+__global__ void __launch_bounds__(kThreads)
+decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const int* __restrict__ kv_len,
+                    float* __restrict__ ws, int Hq, int Hkv, int Smax,
+                    int window, float softcap, float scale, int bk) {
+  constexpr int V = vec_len<T>();       // elements of one 16-byte load
+  constexpr int LPR = D / V;            // lanes that read one key row
+  constexpr int KPS = 32 / LPR;         // keys of one warp step
+  // steps in flight: fewer when a step is one key per warp (float32,
+  // D = 128), where four would spill
+  constexpr int NB = KPS == 1 ? kSplitSteps / 2 : kSplitSteps;
+  constexpr int PL = D + 2;             // a partial: acc[D], m, l
+  constexpr int NW = kThreads / 32;
+  __shared__ __align__(16) float wp[NW][R][PL];   // the warps' partials
+  const int split = blockIdx.x;
+  const int hk = blockIdx.y;
+  const int b = blockIdx.z;
+  const int splits = gridDim.x;
+  const int G = Hq / Hkv;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+
+  // the live keys of this split: [s0, s1), every one of them valid
+  const int kvl = kv_len[b];
+  const int k_end = min(kvl, Smax);
+  const int k_lo = window > 0 ? max(0, kvl - window) : 0;
+  const int s0 = max(split * bk, k_lo);
+  const int s1 = min(split * bk + bk, k_end);
+  // query head hk * G + g of lane b: its partial of this split
+  float* part = ws + (((size_t)b * Hq + (size_t)hk * G) * splits + split) * PL;
+  const size_t head_stride = (size_t)splits * PL;
+  if (s0 >= s1) {
+    for (int g = threadIdx.x; g < G; g += blockDim.x) {
+      part[g * head_stride + D] = kNegInf;
+      part[g * head_stride + D + 1] = 0.f;
+    }
+    return;
+  }
+
+  const size_t kv_base = ((size_t)b * Hkv + hk) * Smax * D;
+  const T* kb = k + kv_base;
+  const T* vb = v + kv_base;
+  const T* qb = q + ((size_t)b * Hq + (size_t)hk * G) * D;
+  const int sub = lane / LPR;           // which key of a step
+  const int col = (lane % LPR) * V;     // first column this lane reads
+  const int steps = (s1 - s0 + KPS - 1) / KPS;
+
+  for (int g0 = 0; g0 < G; g0 += R) {
+    const int nr = min(R, G - g0);
+    float qf[R][V];                     // this lane's columns, pre-scaled
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      load16(qb + (size_t)(g0 + min(i, nr - 1)) * D + col, qf[i]);
+#pragma unroll
+      for (int e = 0; e < V; ++e) qf[i][e] *= scale;
+    }
+    float m[R], l[R], acc[R][V];
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      m[i] = kNegInf;
+      l[i] = 0.f;
+#pragma unroll
+      for (int e = 0; e < V; ++e) acc[i][e] = 0.f;
+    }
+    for (int st0 = warp; st0 < steps; st0 += NB * NW) {
+      uint4 kr[NB], vr[NB];
+      bool ok[NB];
+#pragma unroll
+      for (int u = 0; u < NB; ++u) {
+        const int kpos = s0 + (st0 + u * NW) * KPS + sub;
+        ok[u] = kpos < s1;
+        if (ok[u]) {
+          kr[u] = *reinterpret_cast<const uint4*>(kb + (size_t)kpos * D + col);
+          vr[u] = *reinterpret_cast<const uint4*>(vb + (size_t)kpos * D + col);
+        } else {
+          kr[u] = vr[u] = make_uint4(0u, 0u, 0u, 0u);
+        }
+      }
+      float sc[NB][R];
+#pragma unroll
+      for (int u = 0; u < NB; ++u) {
+        float kf[V];
+        unpack16(kr[u], kf);
+#pragma unroll
+        for (int i = 0; i < R; ++i) {
+          float x = 0.f;
+#pragma unroll
+          for (int e = 0; e < V; ++e) x = fmaf(qf[i][e], kf[e], x);
+#pragma unroll
+          for (int off = LPR / 2; off > 0; off >>= 1) {
+            x += __shfl_xor_sync(kFull, x, off);
+          }
+          if (softcap > 0.f) x = softcap * tanhf(x / softcap);
+          sc[u][i] = ok[u] ? x : kNegInf;
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        float mx = m[i];
+#pragma unroll
+        for (int u = 0; u < NB; ++u) mx = fmaxf(mx, sc[u][i]);
+        const float alpha = expf(m[i] - mx);
+        l[i] *= alpha;
+#pragma unroll
+        for (int e = 0; e < V; ++e) acc[i][e] *= alpha;
+#pragma unroll
+        for (int u = 0; u < NB; ++u) {
+          float vf[V];
+          unpack16(vr[u], vf);
+          const float p = ok[u] ? expf(sc[u][i] - mx) : 0.f;
+          l[i] += p;
+#pragma unroll
+          for (int e = 0; e < V; ++e) acc[i][e] = fmaf(p, vf[e], acc[i][e]);
+        }
+        m[i] = mx;
+      }
+    }
+    // merge the warp's KPS key streams (lanes LPR apart) into lanes < LPR
+#pragma unroll
+    for (int off = LPR; off < 32; off <<= 1) {
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        const float mo = __shfl_xor_sync(kFull, m[i], off);
+        const float lo = __shfl_xor_sync(kFull, l[i], off);
+        const float mx = fmaxf(m[i], mo);
+        const float a = expf(m[i] - mx);
+        const float c = expf(mo - mx);
+        l[i] = l[i] * a + lo * c;
+#pragma unroll
+        for (int e = 0; e < V; ++e) {
+          const float ao = __shfl_xor_sync(kFull, acc[i][e], off);
+          acc[i][e] = acc[i][e] * a + ao * c;
+        }
+        m[i] = mx;
+      }
+    }
+    if (sub == 0) {
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+#pragma unroll
+        for (int e = 0; e < V; ++e) wp[warp][i][col + e] = acc[i][e];
+        if (lane == 0) {
+          wp[warp][i][D] = m[i];
+          wp[warp][i][D + 1] = l[i];
+        }
+      }
+    }
+    __syncthreads();
+    // merge the warps into this split's partial of each row
+    for (int x = threadIdx.x; x < nr * D; x += blockDim.x) {
+      const int i = x / D;
+      const int d = x % D;
+      float mx = kNegInf;
+#pragma unroll
+      for (int w = 0; w < NW; ++w) mx = fmaxf(mx, wp[w][i][D]);
+      float a = 0.f, sum = 0.f;
+#pragma unroll
+      for (int w = 0; w < NW; ++w) {
+        const float c = expf(wp[w][i][D] - mx);
+        a = fmaf(c, wp[w][i][d], a);
+        sum = fmaf(c, wp[w][i][D + 1], sum);
+      }
+      float* out = part + (size_t)(g0 + i) * head_stride;
+      out[d] = a;
+      if (d == 0) {
+        out[D] = mx;
+        out[D + 1] = sum;
+      }
+    }
+    __syncthreads();   // before the next rows reuse wp
+  }
+}
+
+// One block per (query head, lane): the live splits' partials merged by
+// max-rescale; no live split (l = 0 everywhere) gives 0.
+template <typename T, int D>
+__global__ void __launch_bounds__(D)
+decode_combine_kernel(const float* __restrict__ ws, T* __restrict__ o,
+                      int splits) {
+  constexpr int PL = D + 2;
+  const size_t row = (size_t)blockIdx.y * gridDim.x + blockIdx.x;
+  const float* p = ws + row * splits * PL;
+  float mx = kNegInf;
+  for (int s = 0; s < splits; ++s) {
+    if (p[s * PL + D + 1] > 0.f) mx = fmaxf(mx, p[s * PL + D]);
+  }
+  const int d = threadIdx.x;
+  float a = 0.f, sum = 0.f;
+  for (int s = 0; s < splits; ++s) {
+    const float ls = p[s * PL + D + 1];
+    if (ls > 0.f) {
+      const float c = expf(p[s * PL + D] - mx);
+      sum = fmaf(c, ls, sum);
+      a = fmaf(c, p[s * PL + d], a);
+    }
+  }
+  o[row * D + d] = from_f32<T>(sum > 0.f ? a / sum : 0.f);
+}
+
+template <typename T, int D>
+static int launch_dense(const void* q, const void* k, const void* v,
+                        const int* kv_len, float* ws, void* o, int B, int Hq,
+                        int Hkv, int Smax, int window, float softcap,
+                        float scale, int bk, cudaStream_t stream) {
+  const int splits = Smax > bk ? (Smax + bk - 1) / bk : 1;
+  const dim3 grid(splits, Hkv, B);
+  auto kern = Hq == Hkv ? decode_split_kernel<T, D, 1>
+                        : decode_split_kernel<T, D, 4>;
+  kern<<<grid, kThreads, 0, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), kv_len, ws, Hq, Hkv, Smax, window, softcap,
+      scale, bk);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  decode_combine_kernel<T, D><<<dim3(Hq, B), D, 0, stream>>>(
+      ws, static_cast<T*>(o), splits);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace repro_torch
 
 using namespace repro_torch;
 
-// K2. q (B, Hq, 1, D); caches (B, Hkv, Smax, D); kv_len (B,) int32.
+// K2. q (B, Hq, 1, D); caches (B, Hkv, Smax, D); kv_len (B,) int32;
+// workspace (B, Hq, max(1, ceil(Smax / block_k)), D + 2) float32.
 extern "C" int repro_decode_attention(int dtype, int head_dim, const void* q,
                                       const void* k_cache,
                                       const void* v_cache, const int* kv_len,
-                                      void* o, int B, int Hq, int Hkv,
-                                      int Smax, int window, float softcap,
-                                      float scale, int block_k,
+                                      float* workspace, void* o, int B,
+                                      int Hq, int Hkv, int Smax, int window,
+                                      float softcap, float scale, int block_k,
                                       void* stream) {
-  return dispatch_decode<false, false>(dtype, head_dim, q, k_cache, v_cache,
-                                       nullptr, nullptr, nullptr, kv_len, o,
-                                       B, Hq, Hkv, Smax, 1, window, softcap,
-                                       scale, block_k,
-                                       static_cast<cudaStream_t>(stream));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define REPRO_DENSE(T, D)                                                   \
+  return launch_dense<T, D>(q, k_cache, v_cache, kv_len, workspace, o, B,  \
+                            Hq, Hkv, Smax, window, softcap, scale, block_k, \
+                            st)
+  if (dtype == 0 && head_dim == 64) REPRO_DENSE(float, 64);
+  if (dtype == 0 && head_dim == 128) REPRO_DENSE(float, 128);
+  if (dtype == 1 && head_dim == 64) REPRO_DENSE(__nv_bfloat16, 64);
+  if (dtype == 1 && head_dim == 128) REPRO_DENSE(__nv_bfloat16, 128);
+#undef REPRO_DENSE
+  return (int)cudaErrorInvalidValue;
 }
 
 // K3. pools (num_blocks, Hkv, block_size, D); block_tables (B, max_blocks)
@@ -167,11 +430,11 @@ extern "C" int repro_paged_decode_attention(
     const void* v_pool, const int* block_tables, const int* kv_len, void* o,
     int B, int Hq, int Hkv, int block_size, int max_blocks, int window,
     float softcap, float scale, int block_k, void* stream) {
-  return dispatch_decode<true, false>(dtype, head_dim, q, k_pool, v_pool,
-                                      nullptr, nullptr, block_tables, kv_len,
-                                      o, B, Hq, Hkv, block_size, max_blocks,
-                                      window, softcap, scale, block_k,
-                                      static_cast<cudaStream_t>(stream));
+  return dispatch_decode<false>(dtype, head_dim, q, k_pool, v_pool, nullptr,
+                                nullptr, block_tables, kv_len, o, B, Hq, Hkv,
+                                block_size, max_blocks, window, softcap,
+                                scale, block_k,
+                                static_cast<cudaStream_t>(stream));
 }
 
 // K4. k/v pools (num_blocks, Hkv, block_size, D) int8; k/v scale pools
@@ -184,10 +447,9 @@ extern "C" int repro_paged_decode_attention_int8(
     const int* block_tables, const int* kv_len, void* o, int B, int Hq,
     int Hkv, int block_size, int max_blocks, int window, float softcap,
     float scale, int block_k, void* stream) {
-  return dispatch_decode<true, true>(dtype, head_dim, q, k_pool, v_pool,
-                                     k_scale_pool, v_scale_pool, block_tables,
-                                     kv_len, o, B, Hq, Hkv, block_size,
-                                     max_blocks, window, softcap, scale,
-                                     block_k,
-                                     static_cast<cudaStream_t>(stream));
+  return dispatch_decode<true>(dtype, head_dim, q, k_pool, v_pool,
+                               k_scale_pool, v_scale_pool, block_tables,
+                               kv_len, o, B, Hq, Hkv, block_size, max_blocks,
+                               window, softcap, scale, block_k,
+                               static_cast<cudaStream_t>(stream));
 }

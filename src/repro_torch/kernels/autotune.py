@@ -55,12 +55,15 @@ class StaleCacheError(ValueError):
 # Defaults per (kernel, backend): what ops dispatch uses when no tuned entry
 # matches. An empty dict means nothing to tune on that backend. The "ref"
 # rows are the reference package's; the "cuda" rows are the Hopper
-# kernels' own parameters and today's defaults.
+# kernels' own parameters and their wrappers' defaults. Flash tiles are the
+# ones both of K1's kernels take (bf16 v3: one or two 64-row warpgroups;
+# f32 v2), since a bucket does not say the dtype; K2's block_kv is the keys
+# of one KV split.
 DEFAULT_PARAMS: Dict[Tuple[str, str], Dict[str, object]] = {
     ("flash_attention", "ref"): {"block_q": 1024},
-    ("flash_attention", "cuda"): {"block_q": 64, "block_kv": 32},
+    ("flash_attention", "cuda"): {"block_q": 64, "block_kv": 64},
     ("decode_attention", "ref"): {},
-    ("decode_attention", "cuda"): {"block_kv": 128},
+    ("decode_attention", "cuda"): {"block_kv": 64},
     ("paged_decode_quant", "ref"): {"impl": "gather"},
     ("paged_decode_quant", "cuda"): {"impl": "gather"},
     ("ssm_scan", "ref"): {"chunk": 128},
@@ -71,7 +74,7 @@ DEFAULT_PARAMS: Dict[Tuple[str, str], Dict[str, object]] = {
 # never slower than the default on the measured grid.
 _SPACES: Dict[Tuple[str, str], Dict[str, Sequence[object]]] = {
     ("flash_attention", "ref"): {"block_q": (128, 256, 512, 1024, 2048)},
-    ("flash_attention", "cuda"): {"block_q": (16, 32, 64, 128),
+    ("flash_attention", "cuda"): {"block_q": (64, 128),
                                   "block_kv": (32, 64, 128)},
     ("decode_attention", "ref"): {},
     ("decode_attention", "cuda"): {"block_kv": (32, 64, 128)},

@@ -5,9 +5,10 @@ K2 replaces the Pallas TPU kernel ``repro/kernels/decode_attention.py::
 decode_attention`` (body ``_decode_kernel``); K3 replaces
 ``paged_decode_attention`` (body ``_paged_decode_kernel``); K4 replaces
 ``paged_decode_attention_int8`` (body ``_paged_decode_int8_kernel``). All
-three are ``csrc/decode_attention.cu``, one template with a dense and a
-paged addressing mode and a float or int8 tile loader; its header note says
-what bounds them and what this first version leaves out.
+three are ``csrc/decode_attention.cu``. K2 splits the KV axis across
+blocks and merges the splits' float32 partials in a second launch (two
+device kernels per call, one count); K3 and K4 share one paged template with
+a float or an int8 tile loader. Its header note says what bounds them.
 """
 from __future__ import annotations
 
@@ -20,6 +21,12 @@ from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.flash_attention import DTYPE_CODES, check_inputs
 
 PAGED_BLOCK_K = 128    # K3's shared-memory tile: any pool block size works
+
+
+def num_splits(smax: int, block_k: int) -> int:
+    """K2's KV splits: fixed from the cache's Smax, never from kv_len, so a
+    call needs no host sync and captures into a CUDA graph."""
+    return max(1, -(-smax // block_k))
 
 
 def decode_attention_ref(q, k_cache, v_cache, kv_len, *,
@@ -70,11 +77,12 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, kv_len: torch.Tensor, *,
                      window: Optional[int] = None,
                      softcap: Optional[float] = None,
-                     block_k: int = 128) -> torch.Tensor:
+                     block_k: int = 64) -> torch.Tensor:
     """K2. q: (B, Hq, 1, D); caches (B, Hkv, Smax, D); kv_len (B,) int32,
     the new token's K/V already written at kv_len-1. Returns (B, Hq, 1, D).
     CUDA tensors launch the kernel (or raise); CPU tensors take the plain
-    version."""
+    version. ``block_k`` keys per split; the float32 workspace of the
+    splits' partials, (B, Hq, splits, D + 2), is allocated here."""
     if q.device.type == "cpu":
         return decode_attention_ref(q, k_cache, v_cache, kv_len,
                                     window=window, softcap=softcap)
@@ -88,10 +96,13 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
+    ws = torch.empty((B, Hq, num_splits(Smax, block_k), D + 2),
+                     dtype=torch.float32, device=q.device)
     code = _build.library().repro_decode_attention(
         DTYPE_CODES[q.dtype], D, q.data_ptr(), k_cache.data_ptr(),
-        v_cache.data_ptr(), kv_len.data_ptr(), out.data_ptr(), B, Hq, Hkv,
-        Smax, window or 0, float(softcap or 0.0), float(D ** -0.5), block_k,
+        v_cache.data_ptr(), kv_len.data_ptr(), ws.data_ptr(), out.data_ptr(),
+        B, Hq, Hkv, Smax, window or 0, float(softcap or 0.0),
+        float(D ** -0.5), block_k,
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(code, "decode_attention")
     decode_attention.launches += 1

@@ -3,7 +3,9 @@ and its plain version.
 
 Replaces the Pallas TPU kernel ``repro/kernels/flash_attention.py::
 flash_attention`` (body ``_flash_kernel``). The CUDA source is
-``csrc/flash_attention.cu``; its header note says how the TPU grid's
+``csrc/flash_attention.cu``: bfloat16 runs v3 (wgmma tensor-core tiles fed
+by TMA), float32 runs v2 (float32 FMA on the CUDA cores, since TF32 would
+miss the float32 tolerance). Its header note says how the TPU grid's
 sequential K axis became a loop inside one block, and what bounds it.
 """
 from __future__ import annotations
@@ -17,13 +19,19 @@ from repro_torch.kernels import ref as _ref
 
 HEAD_DIMS = (64, 128)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-TILE_SIZES = (16, 32, 64, 128)     # block_q; block_k is a multiple of 32
+# (block_q, block_k) each dtype's kernel takes: v3 (bf16) has one or two
+# 64-row consumer warpgroups and a wgmma N of block_k; v2 (f32) any 16-row
+# multiple up to 128 and a multiple of 32 keys.
+TILES = {torch.bfloat16: ((64, 128), (32, 64, 128)),
+         torch.float32: ((16, 32, 64, 128), (32, 64, 96, 128))}
+TILE_SIZES = (64, 128)             # block_q both kernels take
 SMEM_BYTES = 232_448               # dynamic shared memory a block may use
 
 
 def smem_bytes(rows: int, block_k: int, head_dim: int) -> int:
-    """Shared memory of one attention block (csrc/attention_common.cuh
-    ``smem_floats``): q and acc rows, m and l, the K and V tiles."""
+    """Shared memory of one v2 (float32) attention block
+    (csrc/attention_common.cuh ``smem_floats``): q and acc rows, m and l,
+    the K and V tiles."""
     r4 = (rows + 3) & ~3
     return 4 * (2 * rows * head_dim + 2 * r4 + head_dim * (block_k + 1)
                 + block_k * head_dim)
@@ -70,7 +78,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
                     softcap: Optional[float] = None, q_offset: int = 0,
                     sk_valid: Optional[int] = None, block_q: int = 64,
-                    block_k: int = 32) -> torch.Tensor:
+                    block_k: int = 64) -> torch.Tensor:
     """q: (B, Hq, Sq, D); k, v: (B, Hkv, Sk, D). Returns (B, Hq, Sq, D).
 
     On a CUDA tensor this launches the Hopper kernel (or raises); a CPU
@@ -87,11 +95,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if v.shape != k.shape or Bk != B or Dk != D or Hq % Hkv:
         raise ValueError(f"flash_attention: shapes q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}")
-    if block_q not in TILE_SIZES or block_k % 32 or not 32 <= block_k <= 128:
-        raise ValueError(f"flash_attention: block_q {block_q} not in "
-                         f"{TILE_SIZES} or block_k {block_k} not a multiple "
-                         f"of 32 in [32, 128]")
-    if smem_bytes(block_q, block_k, D) > SMEM_BYTES:
+    tiles_q, tiles_k = TILES[q.dtype]
+    if block_q not in tiles_q or block_k not in tiles_k:
+        raise ValueError(f"flash_attention: {str(q.dtype)[6:]} takes block_q "
+                         f"in {tiles_q} and block_k in {tiles_k}, got "
+                         f"{block_q} x {block_k}")
+    if q.dtype == torch.float32 \
+            and smem_bytes(block_q, block_k, D) > SMEM_BYTES:
         raise ValueError(f"flash_attention: block_q {block_q} x block_k "
                          f"{block_k} at head dim {D} needs "
                          f"{smem_bytes(block_q, block_k, D)} bytes of shared "
@@ -106,6 +116,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
+    if sk_valid == 0:                  # no key at all: every row is 0
+        return out.zero_()
     lib = _build.library()
     code = lib.repro_flash_attention(
         DTYPE_CODES[q.dtype], D, q.data_ptr(), k.data_ptr(), v.data_ptr(),

@@ -15,6 +15,7 @@
 Everything here runs the plain path (backend "ref") on the CPU; the "cuda"
 backend is timed on the card by chip_smoke.py.
 """
+import inspect
 import json
 
 import numpy as np
@@ -24,6 +25,7 @@ import torch
 from repro.kernels import autotune as JAT
 from repro_torch.core.pricing import KernelSample
 from repro_torch.kernels import autotune as AT
+from repro_torch.kernels import decode_attention as DA
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import ssm_scan as SS
@@ -91,14 +93,20 @@ def test_cuda_rows_are_the_kernels_own_parameters():
     """Defaults are today's kernel defaults; every candidate is one the
     kernels take."""
     assert AT.default_params("flash_attention", "cuda") == \
-        {"block_q": 64, "block_kv": 32}
-    assert AT.default_params("decode_attention", "cuda") == {"block_kv": 128}
+        {"block_q": 64, "block_kv": 64}
+    assert AT.default_params("decode_attention", "cuda") == {"block_kv": 64}
+    flash = inspect.signature(FA.flash_attention).parameters
+    assert (flash["block_q"].default, flash["block_k"].default) == (64, 64)
+    decode = inspect.signature(DA.decode_attention).parameters
+    assert decode["block_k"].default == 64
     assert AT.default_params("paged_decode_quant", "cuda") == \
         {"impl": "gather"}
     assert AT.default_params("ssm_scan", "cuda") == {"chunk": 128}
     for c in AT.param_space("flash_attention", "cuda"):
-        assert c["block_q"] in FA.TILE_SIZES and c["block_kv"] in (32, 64, 128)
-    assert len(AT.param_space("flash_attention", "cuda")) == 12
+        assert c["block_q"] in FA.TILE_SIZES
+        for dtype, (tiles_q, tiles_k) in FA.TILES.items():
+            assert c["block_q"] in tiles_q and c["block_kv"] in tiles_k, dtype
+    assert len(AT.param_space("flash_attention", "cuda")) == 6
     assert {c["block_kv"] for c in AT.param_space("decode_attention",
                                                   "cuda")} == {32, 64, 128}
     assert {c["chunk"] for c in AT.param_space("ssm_scan", "cuda")} == \

@@ -105,6 +105,152 @@ def test_flash_refuses_a_tile_over_shared_memory():
                                FA.flash_attention_ref(h, h, h))
 
 
+def _flash_rows(Sq, q_offset, window, sk_valid):
+    """Causal query rows with at least one valid key."""
+    qpos = torch.arange(Sq) + q_offset
+    nearest = torch.clamp(qpos, max=sk_valid - 1)
+    ok = nearest >= 0
+    if window is not None:
+        ok &= (qpos - nearest) < window
+    return ok
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", [
+    dict(Sq=37, Sk=37), dict(Sq=300, Sk=300), dict(Sq=512, Sk=512),
+    dict(Sq=37, Sk=101, q_offset=64), dict(Sq=40, Sk=40, q_offset=-4),
+    dict(Sq=64, Sk=64, softcap=30.0), dict(Sq=200, Sk=200, D=64, window=17),
+    dict(Sq=100, Sk=100, sk_valid=77), dict(Sq=128, Sk=128, Hkv=32),
+    dict(Sq=300, Sk=300, D=64, Hkv=32, window=8192)])
+def test_flash_bf16_v3_matches_plain_on_card(case):
+    """K1 v3 (bf16, wgmma): ragged Sq, q offsets either side of 0, softcap,
+    window, sk_valid < Sk, D 64 and 128, Hkv 8 and 32. Rows with no valid
+    key are 0."""
+    _need_card()
+    c = dict(case)
+    Sq, Sk, D, Hkv = c.pop("Sq"), c.pop("Sk"), c.pop("D", 128), \
+        c.pop("Hkv", 8)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    q = _randn(gen, (1, 32, Sq, D), torch.bfloat16)
+    k = _randn(gen, (1, Hkv, Sk, D), torch.bfloat16)
+    v = _randn(gen, (1, Hkv, Sk, D), torch.bfloat16)
+    got = FA.flash_attention(q, k, v, **c)
+    want = FA.flash_attention_ref(q, k, v, **c)
+    rows = _flash_rows(Sq, c.get("q_offset", 0), c.get("window"),
+                       c.get("sk_valid", Sk)).cuda()
+    torch.testing.assert_close(got[:, :, rows].float(),
+                               want[:, :, rows].float(), atol=2e-2, rtol=2e-2)
+    assert torch.count_nonzero(got[:, :, ~rows]) == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_bf16_v3_every_tile_on_card(D):
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    q = _randn(gen, (2, 8, 300, D), torch.bfloat16)
+    k = _randn(gen, (2, 2, 300, D), torch.bfloat16)
+    v = _randn(gen, (2, 2, 300, D), torch.bfloat16)
+    want = FA.flash_attention_ref(q, k, v, window=100)
+    tiles_q, tiles_k = FA.TILES[torch.bfloat16]
+    for bq in tiles_q:
+        for bk in tiles_k:
+            torch.testing.assert_close(
+                FA.flash_attention(q, k, v, window=100, block_q=bq,
+                                   block_k=bk).float(), want.float(),
+                atol=2e-2, rtol=2e-2, msg=f"tile {bq} x {bk}")
+
+
+@pytest.mark.gpu
+def test_flash_refuses_tiles_its_dtype_kernel_does_not_take():
+    """v3 (bf16) takes block_q 64/128 and block_k 32/64/128; v2 (f32) also
+    block_q 16/32 and block_k 96. A refusal launches nothing."""
+    _need_card()
+    q = torch.zeros((1, 2, 64, 64), device="cuda")
+    before = FA.flash_attention.launches
+    for tiles in (dict(block_q=32), dict(block_q=16), dict(block_k=96)):
+        with pytest.raises(ValueError, match="takes block_q"):
+            FA.flash_attention(q.bfloat16(), q.bfloat16(), q.bfloat16(),
+                               **tiles)
+    assert FA.flash_attention.launches == before
+    for tiles in (dict(block_q=32), dict(block_k=96)):
+        torch.testing.assert_close(FA.flash_attention(q, q, q, **tiles),
+                                   FA.flash_attention_ref(q, q, q))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("block_k", [32, 64, 128])
+def test_decode_split_edges_on_card(dtype, D, block_k):
+    """K2 v3 at kv_len on both sides of a split edge and at Smax, B = 5
+    ragged, with a window of 64 and a softcap of 20, against its plain
+    version."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    Smax = 3 * block_k + 9
+    kv = torch.tensor([1, block_k - 1, block_k, block_k + 1, Smax],
+                      dtype=torch.int32, device="cuda")
+    q = _randn(gen, (5, 8, 1, D), dtype)
+    k = _randn(gen, (5, 2, Smax, D), dtype)
+    v = _randn(gen, (5, 2, Smax, D), dtype)
+    for kw in ({}, {"window": 64}, {"softcap": 20.0}):
+        torch.testing.assert_close(
+            DA.decode_attention(q, k, v, kv, block_k=block_k, **kw).float(),
+            DA.decode_attention_ref(q, k, v, kv, **kw).float(),
+            atol=TOL[dtype], rtol=TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_many_query_heads_per_kv_head_on_card(dtype):
+    """falcon-7b's grouping, 71 query heads on one KV head at D = 64: K2
+    scores its rows four per pass (18 passes) and K1 maps every head to KV
+    head 0."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    q = _randn(gen, (2, 71, 100, 64), dtype)
+    k = _randn(gen, (2, 1, 100, 64), dtype)
+    v = _randn(gen, (2, 1, 100, 64), dtype)
+    torch.testing.assert_close(FA.flash_attention(q, k, v).float(),
+                               FA.flash_attention_ref(q, k, v).float(),
+                               atol=TOL[dtype], rtol=TOL[dtype])
+    kv = torch.tensor([37, 100], dtype=torch.int32, device="cuda")
+    q1 = q[:, :, :1].contiguous()
+    torch.testing.assert_close(
+        DA.decode_attention(q1, k, v, kv, window=50).float(),
+        DA.decode_attention_ref(q1, k, v, kv, window=50).float(),
+        atol=TOL[dtype], rtol=TOL[dtype])
+
+
+@pytest.mark.gpu
+def test_decode_captures_into_a_cuda_graph_and_counts_calls():
+    """One K2 call is two device kernels (splits, combine) and one count; it
+    needs no host sync, so it captures into a CUDA graph, and a replay reads
+    kv_len from the device."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    q = _randn(gen, (4, 32, 1, 128), torch.bfloat16)
+    k = _randn(gen, (4, 8, 544, 128), torch.bfloat16)
+    v = _randn(gen, (4, 8, 544, 128), torch.bfloat16)
+    kv = torch.tensor([40, 130, 300, 528], dtype=torch.int32, device="cuda")
+    before = DA.decode_attention.launches
+    eager = DA.decode_attention(q, k, v, kv)
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out = DA.decode_attention(q, k, v, kv)
+    g.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
+    kv += 1
+    g.replay()
+    torch.testing.assert_close(out.float(),
+                               DA.decode_attention_ref(q, k, v, kv).float(),
+                               atol=2e-2, rtol=2e-2)
+    assert DA.decode_attention.launches == before + 2
+
+
 @pytest.mark.gpu
 def test_launch_counters_count_kernel_launches():
     _need_card()

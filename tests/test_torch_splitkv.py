@@ -1,0 +1,216 @@
+"""CPU rehearsal of the arithmetic of K1 v3 and K2 v3 against the JAX package.
+
+The Hopper kernels run only on a card (tests/test_torch_gpu.py). What is new
+in their arithmetic is modelled here in torch on the CPU, so that it is held
+against the reference before any card sees it:
+
+* K2 v3 splits the KV axis across blocks: each split of ``block_k`` keys
+  keeps its own float32 partial (m, l, acc), and a combine pass merges the
+  live splits by max-rescale. The mirror below does exactly that, and is
+  held against ``repro.kernels.ref.decode_attention`` and the Pallas
+  ``decode_attention`` (interpret mode) in float32 at 2e-5, at kv_len on
+  either side of a split edge, a window that cuts splits, and G = 1 and 4.
+* K1 v3 computes S = Q·Kᵀ from bf16 values with float32 accumulation, scales
+  S (not Q) by D^-0.5 in float32, and rounds P to bf16 before P·V while the
+  row sums l use the unrounded P. The mirror below walks key tiles with that
+  online softmax and is held against ``repro.kernels.ref.mha_attention`` at
+  the bf16 tolerance 2e-2, on rows that have a valid key.
+
+These mirrors are models of the kernels' algorithms and live here, not in
+the package.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ref as jref
+from repro.kernels.decode_attention import decode_attention as pallas_decode
+
+NEG_INF = -1e30     # the kernels' and the reference's mask value
+F32_TOL = 2e-5
+BF16_TOL = 2e-2
+
+
+# ------------------------------------------------------------------ K2 v3
+def splitkv_decode(q, k, v, kv_len, *, block_k, window=None, softcap=None):
+    """K2 v3's arithmetic: per-split float32 partials, then the combine.
+
+    q (B, Hq, 1, D), caches (B, Hkv, Smax, D), kv_len (B,) int. Returns
+    (out (B, Hq, 1, D) float32, partials (B, Hq, splits, D + 2))."""
+    B, Hq, _, D = q.shape
+    _, Hkv, Smax, _ = k.shape
+    G = Hq // Hkv
+    splits = max(1, -(-Smax // block_k))
+    qs = q[:, :, 0].float() * D ** -0.5                       # (B, Hq, D)
+    kf = k.float().repeat_interleave(G, dim=1)
+    vf = v.float().repeat_interleave(G, dim=1)
+    kvl = torch.as_tensor(kv_len).long()
+    k_end = torch.clamp(kvl, max=Smax)
+    k_lo = torch.clamp(kvl - window, min=0) if window else torch.zeros_like(kvl)
+    parts = torch.empty(B, Hq, splits, D + 2)
+    for s in range(splits):
+        s0 = torch.clamp(k_lo, min=s * block_k)
+        s1 = torch.clamp(k_end, max=s * block_k + block_k)
+        pos = torch.arange(s * block_k, min(Smax, s * block_k + block_k))
+        ok = (pos[None, :] >= s0[:, None]) & (pos[None, :] < s1[:, None])
+        ok = ok[:, None, :]                                   # (B, 1, n)
+        x = torch.einsum("bhd,bhnd->bhn", qs, kf[:, :, pos])
+        if softcap is not None:
+            x = softcap * torch.tanh(x / softcap)
+        x = torch.where(ok, x, torch.full_like(x, NEG_INF))
+        m = x.amax(-1)                                        # (B, Hq)
+        p = torch.where(ok, torch.exp(x - m[..., None]), torch.zeros_like(x))
+        l = p.sum(-1)
+        live = (s0 < s1)[:, None].expand(B, Hq)
+        parts[:, :, s, :D] = torch.einsum("bhn,bhnd->bhd", p, vf[:, :, pos])
+        parts[:, :, s, D] = torch.where(live, m, torch.full_like(m, NEG_INF))
+        parts[:, :, s, D + 1] = torch.where(live, l, torch.zeros_like(l))
+    m, l = parts[..., D], parts[..., D + 1]
+    live = l > 0
+    mx = torch.where(live, m, torch.full_like(m, NEG_INF)).amax(-1,
+                                                               keepdim=True)
+    c = torch.where(live, torch.exp(m - mx), torch.zeros_like(m))
+    total = (c * l).sum(-1)
+    acc = (c[..., None] * parts[..., :D]).sum(-2)
+    out = torch.where(total[..., None] > 0,
+                      acc / torch.where(total > 0, total, 1.0)[..., None],
+                      torch.zeros_like(acc))
+    return out[:, :, None], parts
+
+
+def _decode_inputs(seed, B, Hq, Hkv, Smax, D):
+    rng = np.random.default_rng(seed)
+    return [rng.normal(size=s).astype(np.float32)
+            for s in ((B, Hq, 1, D), (B, Hkv, Smax, D), (B, Hkv, Smax, D))]
+
+
+@pytest.mark.parametrize("block_k", [32, 64, 128])
+@pytest.mark.parametrize("G", [1, 4])
+@pytest.mark.parametrize("window", [None, 71])
+def test_splitkv_mirror_matches_jax_and_pallas(block_k, G, window):
+    """kv_len 1, block_k - 1, block_k, block_k + 1 and Smax (ragged: Smax is
+    not a multiple of block_k); window 71 cuts splits in two."""
+    Hkv, D = 2, 64
+    Smax = 3 * block_k + 9
+    kv_len = np.asarray([1, block_k - 1, block_k, block_k + 1, Smax],
+                        np.int32)
+    q, k, v = _decode_inputs(20 + G, len(kv_len), G * Hkv, Hkv, Smax, D)
+    got, _ = splitkv_decode(torch.from_numpy(q), torch.from_numpy(k),
+                            torch.from_numpy(v), kv_len, block_k=block_k,
+                            window=window)
+    kw = {} if window is None else {"window": window}
+    want = jref.decode_attention(jnp.asarray(q), jnp.asarray(k),
+                                 jnp.asarray(v), kv_len=jnp.asarray(kv_len),
+                                 **kw)
+    pallas = pallas_decode(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                           jnp.asarray(kv_len), interpret=True, **kw)
+    for ref_out in (want, pallas):
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref_out),
+                                   atol=F32_TOL, rtol=F32_TOL)
+
+
+def test_splitkv_mirror_softcap_and_dead_splits():
+    """Softcap 20 at D = 128; a lane with kv_len 0 gets 0 (no live split),
+    and every split past kv_len or left of the window carries l = 0."""
+    B, Hq, Hkv, Smax, D, bk, window = 3, 8, 2, 300, 128, 64, 100
+    kv_len = np.asarray([0, 130, 300], np.int32)
+    q, k, v = _decode_inputs(31, B, Hq, Hkv, Smax, D)
+    got, parts = splitkv_decode(torch.from_numpy(q), torch.from_numpy(k),
+                                torch.from_numpy(v), kv_len, block_k=bk,
+                                window=window, softcap=20.0)
+    assert torch.count_nonzero(got[0]) == 0
+    live = (parts[..., D + 1] > 0).any(1)                    # (B, splits)
+    # lane 1: keys [30, 130) -> splits 0..2; lane 2: [200, 300) -> 3, 4
+    assert live.tolist() == [[False] * 5, [True, True, True, False, False],
+                             [False, False, False, True, True]]
+    want = jref.decode_attention(jnp.asarray(q), jnp.asarray(k),
+                                 jnp.asarray(v), kv_len=jnp.asarray(kv_len),
+                                 window=window, softcap=20.0)
+    np.testing.assert_allclose(got.numpy()[1:], np.asarray(want)[1:],
+                               atol=F32_TOL, rtol=F32_TOL)
+
+
+# ------------------------------------------------------------------ K1 v3
+def flash_bf16(q, k, v, *, block_k, causal=True, window=None, softcap=None,
+               q_offset=0, sk_valid=None):
+    """K1 v3's arithmetic on bf16 inputs: S from the bf16 values with
+    float32 accumulation, scaled in float32; softcap, then the masks; online
+    softmax over key tiles in float32; P rounded to bf16 before P·V, l from
+    the unrounded P; 0 for a row with no valid key. Returns float32."""
+    B, Hq, Sq, D = q.shape
+    _, Hkv, Sk, _ = k.shape
+    G = Hq // Hkv
+    sk_valid = Sk if sk_valid is None else sk_valid
+    qf = q.float()
+    kf = k.float().repeat_interleave(G, dim=1)
+    vf = v.float().repeat_interleave(G, dim=1)
+    qpos = torch.arange(Sq)[:, None] + q_offset
+    m = torch.full((B, Hq, Sq, 1), -float("inf"))
+    l = torch.zeros(B, Hq, Sq, 1)
+    acc = torch.zeros(B, Hq, Sq, D)
+    for k0 in range(0, Sk, block_k):
+        kpos = torch.arange(k0, min(Sk, k0 + block_k))[None, :]
+        ok = kpos < sk_valid
+        if causal:
+            ok = ok & (kpos <= qpos)
+        if window is not None:
+            ok = ok & (qpos - kpos < window)
+        x = torch.einsum("bhqd,bhkd->bhqk", qf, kf[:, :, kpos[0]]) * D ** -0.5
+        if softcap is not None:
+            x = softcap * torch.tanh(x / softcap)
+        x = torch.where(ok, x, torch.full_like(x, -float("inf")))
+        mx = torch.maximum(m, x.amax(-1, keepdim=True))
+        base = torch.where(mx == -float("inf"), torch.zeros_like(mx), mx)
+        alpha = torch.exp(m - base)
+        p = torch.exp(x - base)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        pv = torch.einsum("bhqk,bhkd->bhqd", p.bfloat16().float(),
+                          vf[:, :, kpos[0]])
+        acc = acc * alpha + pv
+        m = mx
+    return torch.where(l > 0, acc / torch.where(l > 0, l, 1.0),
+                       torch.zeros_like(acc))
+
+
+def _valid_rows(Sq, Sk, q_offset, window, sk_valid):
+    """Causal query rows with at least one valid key."""
+    qpos = np.arange(Sq) + q_offset
+    nearest = np.minimum(qpos, sk_valid - 1)
+    ok = nearest >= 0
+    if window is not None:
+        ok &= (qpos - nearest) < window
+    return ok
+
+
+@pytest.mark.parametrize("case", [
+    dict(Sq=37, Sk=37, D=128),
+    dict(Sq=300, Sk=300, D=64, Hq=4, Hkv=4),
+    dict(Sq=37, Sk=101, D=128, q_offset=64),
+    dict(Sq=40, Sk=40, D=64, q_offset=-4),
+    dict(Sq=64, Sk=64, D=128, softcap=30.0),
+    dict(Sq=200, Sk=200, D=64, window=17),
+    dict(Sq=100, Sk=100, D=128, sk_valid=77),
+])
+@pytest.mark.parametrize("block_k", [32, 128])
+def test_flash_bf16_mirror_matches_jax(case, block_k):
+    c = dict(case)
+    Sq, Sk, D = c.pop("Sq"), c.pop("Sk"), c.pop("D")
+    Hq, Hkv = c.pop("Hq", 4), c.pop("Hkv", 2)
+    rng = np.random.default_rng(40 + Sq + D)
+    arrs = [rng.normal(size=s).astype(np.float32)
+            for s in ((1, Hq, Sq, D), (1, Hkv, Sk, D), (1, Hkv, Sk, D))]
+    q, k, v = (torch.from_numpy(a).bfloat16() for a in arrs)
+    got = flash_bf16(q, k, v, block_k=block_k, **c)
+    sk_valid = c.pop("sk_valid", None)
+    kw = dict(causal=True, **c)
+    if sk_valid is not None:
+        kw["kv_len"] = jnp.asarray([sk_valid], jnp.int32)
+    qj, kj, vj = (jnp.asarray(a, jnp.bfloat16) for a in arrs)
+    want = np.asarray(jref.mha_attention(qj, kj, vj, **kw), np.float32)
+    rows = _valid_rows(Sq, Sk, c.get("q_offset", 0), c.get("window"),
+                       Sk if sk_valid is None else sk_valid)
+    assert rows.any()
+    np.testing.assert_allclose(got.numpy()[:, :, rows],
+                               want[:, :, rows], atol=BF16_TOL, rtol=BF16_TOL)
+    assert torch.count_nonzero(got[:, :, ~rows]) == 0
