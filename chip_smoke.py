@@ -7,9 +7,10 @@ Phases, each printing its own lines; any failure exits non-zero:
 
   1. device  — card name, count, and nvidia-smi's name and power limit;
   2. build   — the Hopper kernels of src/repro_torch/csrc, built with nvcc
-               (build seconds and -Xptxas -v output, and a line per K1 v3 and
-               K2 v3 kernel with its registers, shared memory and spills; a
-               spill in K1 v3 fails);
+               (build seconds and -Xptxas -v output, and a line per K1 v3,
+               K2 v3 / K3 v2 (split and combine) and K5 v2 (three passes)
+               kernel with its registers, shared memory and spills; a spill
+               in K1 v3 or in a bf16 K5 v2 kernel fails);
   3. kernels — K1 flash prefill, K2 dense decode and K3 paged decode held
                against their plain versions at mistral-7b's attention shapes,
                and K1 and K2 at zamba2-1.2b's shared block's (32 heads, no
@@ -19,19 +20,24 @@ Phases, each printing its own lines; any failure exits non-zero:
                sk_valid < Sk, D 64/128, Hkv 8/32 and every tile; K2 (v3,
                split-KV) at kv_len on both sides of a split edge, both
                dtypes, D 64/128, captured into a CUDA graph, one count per
-               call; the tiles each K1 kernel refuses; K5, the SSD chunked
-               scan, against its chunked plain version and the sequential
-               oracle at mamba2-130m's and zamba2-1.2b's shapes (chunk 128,
-               S = 512 and a ragged 300) and at their reduced shapes (P = N
-               = 32, chunk 32), f32 2e-5, bf16 5e-2, y and the final state;
-               then
+               call; the tiles each K1 kernel refuses; K3 (v2, split-KV
+               through the block tables) at pool blocks of 16 and 128, and
+               at kv_len 0 and on both sides of a split edge for block_k
+               32/64/128, pool blocks of 16 and 32, G = 1 and 4, a window
+               of 71, captured into a CUDA graph; K5 (v2, three passes), the
+               SSD chunked scan, against its chunked plain version and the
+               sequential oracle at mamba2-130m's and zamba2-1.2b's shapes
+               (chunk 128, S = 512 and a ragged 300) and at their reduced
+               shapes (P = N = 32, chunk 32), f32 2e-5, bf16 5e-2, y and the
+               final state, and captured into a CUDA graph; then
                K4, the int8 paged decode, against its plain version (the
                scale-folded read) at mistral-7b's serving shape and a
                reduced D = 64 one (f32 2e-5, bf16 2e-2) and against the
                gather oracle (f32 3e-5); then each timed at each serving
                path's shapes beside the plain version, one PyTorch library
                call where one computes the same function, and the card's
-               bound (K4 also beside the gather composition);
+               bound (K4 also beside the gather composition; K1 by tile, K2
+               and K3 by block_k, K5 by pass);
   3c. tune   — the port's autotuner on the card (backend "cuda") over its
                default shapes and the int8 serving bucket b4c1024; the cache
                is written under build/ and not installed;
@@ -140,26 +146,29 @@ def phase_build():
     for kern, regs, smem, spill in _ptxas_report(info.log):
         say(f"  ptxas {kern}: {regs} registers, {smem} bytes smem, "
             f"spill stores/loads {spill} bytes")
-        if spill != "0/0" and "flash_fwd_wgmma" in kern:
+        if spill != "0/0" and ("flash_fwd_wgmma" in kern or (
+                "ssd_" in kern and "__nv_bfloat16" in kern)):
             spills.append(kern)
     if spills:
-        fail(f"ptxas reports spills in K1 v3's consumers: {spills}")
+        fail(f"ptxas reports spills in K1 v3 or bf16 K5 v2: {spills}")
 
 
-V3_KERNELS = ("flash_fwd_wgmma", "decode_split_kernel",
-              "decode_combine_kernel")
+REPORTED_KERNELS = ("flash_fwd_wgmma", "decode_split_kernel",
+                    "decode_combine_kernel", "ssd_chunk_state_kernel",
+                    "ssd_state_scan_kernel", "ssd_output_kernel")
 
 
 def _ptxas_report(log):
     """(kernel, registers, static smem bytes, "stores/loads" spill bytes) of
-    every K1 v3 and K2 v3 instantiation in nvcc's -Xptxas -v output."""
+    every K1 v3, K2 v3 / K3 v2 and K5 v2 instantiation in nvcc's -Xptxas -v
+    output."""
     import re
     out, name, spill = [], None, "?"
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            name = m.group(1) if any(k in m.group(1) for k in V3_KERNELS) \
-                else None
+            name = m.group(1) if any(k in m.group(1)
+                                     for k in REPORTED_KERNELS) else None
             continue
         if name is None:
             continue
@@ -346,49 +355,51 @@ def check_decode(torch, gen):
                              f"block_k={bk} {kw}")
                     worst["decode_attention"] = max(
                         worst["decode_attention"], err)
-    _check_decode_graph(torch, gen, DA)
+    q, kc, vc, kvl = _decode_inputs(torch, gen, torch.bfloat16, 4, MAX_LEN, D,
+                                    SERVE_KV_LEN)
+    _check_split_graph(torch, "K2", DA.decode_attention,
+                       DA.decode_attention_ref, (q, kc, vc), kvl,
+                       [n + 1 for n in SERVE_KV_LEN])
     return worst
 
 
-def _check_decode_graph(torch, gen, DA):
-    """K2 (split and combine, one call) captured into a CUDA graph: replays
-    equal the eager call, kv_len is read on the device at replay, and the
-    count moves by one per call."""
-    q, kc, vc, kvl = _decode_inputs(torch, gen, torch.bfloat16, 4, MAX_LEN, D,
-                                    [40, 130, 300, 528])
-    before = DA.decode_attention.launches
-    eager = DA.decode_attention(q, kc, vc, kvl)
-    if DA.decode_attention.launches != before + 1:
-        fail("K2's count did not move by one for one call")
+def _check_split_graph(torch, label, fn, ref_fn, args, kvl, new_kv):
+    """K2 or K3 (split and combine, one call) captured into a CUDA graph:
+    replays equal the eager call, kv_len is read on the device at replay
+    (set to new_kv), and the count moves by one per call."""
+    before = fn.launches
+    eager = fn(*args, kvl)
+    if fn.launches != before + 1:
+        fail(f"{label}'s count did not move by one for one call")
     torch.cuda.synchronize()
     g = torch.cuda.CUDAGraph()
     with torch.cuda.graph(g):
-        out = DA.decode_attention(q, kc, vc, kvl)
+        out = fn(*args, kvl)
     g.replay()
     torch.cuda.synchronize()
     same = torch.equal(out, eager)
-    kvl.copy_(torch.tensor([41, 131, 301, 529], dtype=torch.int32))
+    kvl.copy_(torch.tensor(new_kv, dtype=torch.int32))
     g.replay()
-    want = DA.decode_attention_ref(q, kc, vc, kvl)
+    want = ref_fn(*args, kvl)
     torch.cuda.synchronize()
     err, ok = _err_on_valid(torch, out, want,
                             torch.ones(out.shape[:3], dtype=torch.bool,
                                        device="cuda"), TOL["bfloat16"])
-    say(f"  K2 graph: replay equals eager {same}; after kv_len += 1 "
-        f"max_abs_err={err:.3e}; launches "
-        f"{DA.decode_attention.launches - before} for 2 calls "
-        f"{'ok' if same and ok else 'MISMATCH'}")
-    if not (same and ok) or DA.decode_attention.launches != before + 2:
-        fail("K2 under CUDA graph capture")
+    say(f"  {label} graph: replay equals eager {same}; after kv_len -> "
+        f"{new_kv} max_abs_err={err:.3e}; launches {fn.launches - before} "
+        f"for 2 calls {'ok' if same and ok else 'MISMATCH'}")
+    if not (same and ok) or fn.launches != before + 2:
+        fail(f"{label} under CUDA graph capture")
 
 
-def _paged_inputs(torch, gen, dt, bs, d, kv_len, num_blocks, max_blocks):
+def _paged_inputs(torch, gen, dt, bs, d, kv_len, num_blocks, max_blocks,
+                  hq=HQ, hkv=HKV):
     """Pools with random contents and tables whose live entries are distinct
     random blocks (never the null block 0) and whose dead entries are 0."""
     B = len(kv_len)
-    q = _rand(torch, gen, (B, HQ, 1, d), dt)
-    kp = _rand(torch, gen, (num_blocks, HKV, bs, d), dt)
-    vp = _rand(torch, gen, (num_blocks, HKV, bs, d), dt)
+    q = _rand(torch, gen, (B, hq, 1, d), dt)
+    kp = _rand(torch, gen, (num_blocks, hkv, bs, d), dt)
+    vp = _rand(torch, gen, (num_blocks, hkv, bs, d), dt)
     perm = torch.randperm(num_blocks - 1, generator=gen, device="cuda") + 1
     tables = torch.zeros((B, max_blocks), dtype=torch.int32, device="cuda")
     used = 0
@@ -429,6 +440,42 @@ def check_paged(torch, gen):
             fail(f"K3 paged_decode_attention disagrees with its plain "
                  f"version: {c}")
         worst = max(worst, err)
+    # v2's split edges: kv_len 0 and on both sides of a split of block_k
+    # keys, through pool blocks of 16 and 32, G = 4 (mistral-7b) and 1
+    for dt in (torch.float32, torch.bfloat16):
+        for bs in (16, 32):
+            for bk in (32, 64, 128):
+                for hq, hkv, d in ((HQ, HKV, D), (4, 4, 64)):
+                    mb = -(-(2 * bk + 9) // bs)
+                    edges = [0, 1, bk - 1, bk, bk + 1, bs * mb]
+                    q, kp, vp, tables, kvl = _paged_inputs(
+                        torch, gen, dt, bs, d, edges,
+                        1 + sum(-(-n // bs) for n in edges), mb, hq, hkv)
+                    rows = (kvl > 0)[:, None, None].expand(len(edges), hq, 1)
+                    for kw in ({}, {"window": 71}, {"softcap": 20.0}):
+                        got = DA.paged_decode_attention(
+                            q, kp, vp, tables, kvl, block_k=bk, **kw)
+                        want = DA.paged_decode_attention_ref(
+                            q, kp, vp, tables, kvl, **kw)
+                        torch.cuda.synchronize()
+                        err, ok = _err_on_valid(torch, got, want, rows,
+                                                TOL[str(dt)[6:]])
+                        ok = ok and torch.count_nonzero(got[~rows]).item() == 0
+                        say(f"  K3 edges  {str(dt)[6:]:8s} Hq={hq} Hkv={hkv} "
+                            f"D={d:3d} bs={bs} block_k={bk:3d} "
+                            f"kv_len={edges} {kw}: max_abs_err={err:.3e} "
+                            f"{'ok' if ok else 'MISMATCH'}")
+                        if not ok:
+                            fail(f"K3 split edges disagree (or a lane with "
+                                 f"no key is not 0): {dt} bs={bs} "
+                                 f"block_k={bk} Hq={hq} {kw}")
+                        worst = max(worst, err)
+    q, kp, vp, tables, kvl = _paged_inputs(torch, gen, torch.bfloat16, 16, D,
+                                           SERVE_KV_LEN, 1024,
+                                           -(-MAX_LEN // 16))
+    _check_split_graph(torch, "K3", DA.paged_decode_attention,
+                       DA.paged_decode_attention_ref, (q, kp, vp, tables),
+                       kvl, [n - 7 for n in SERVE_KV_LEN])
     return worst
 
 
@@ -544,7 +591,43 @@ def check_ssd(torch, gen):
                     f"ssd_scan@{arch}"
                 if key in worst:
                     worst[key] = max(worst[key], errs[0], errs[1])
+    _check_ssd_graph(torch, gen, SS)
     return worst
+
+
+def _check_ssd_graph(torch, gen, SS):
+    """K5 (three passes, one call) captured into a CUDA graph at
+    mamba2-130m's shape: replays equal the eager call, a replay on new
+    inputs gives their scan, and the count moves by one per call."""
+    H, P, N, L = SSD_SHAPES["mamba2-130m"]
+    inp = _ssd_inputs(torch, gen, torch.bfloat16, 1, H, M_CAP, P, N)
+    before = SS.ssd_scan.launches
+    eager = SS.ssd_scan(*inp, chunk=L)
+    if SS.ssd_scan.launches != before + 1:
+        fail("K5's count did not move by one for one call")
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        y, fs = SS.ssd_scan(*inp, chunk=L)
+    g.replay()
+    torch.cuda.synchronize()
+    same = torch.equal(y, eager[0]) and torch.equal(fs, eager[1])
+    for t, new in zip(inp, _ssd_inputs(torch, gen, torch.bfloat16, 1, H,
+                                       M_CAP, P, N)):
+        t.copy_(new)
+    g.replay()
+    want_y, want_fs = SS.ssd_scan_ref(*inp, chunk=L)
+    torch.cuda.synchronize()
+    tol = SSD_TOL["bfloat16"]
+    err = max((y.float() - want_y.float()).abs().max().item(),
+              (fs - want_fs).abs().max().item())
+    ok = torch.allclose(y.float(), want_y.float(), atol=tol, rtol=tol) and \
+        torch.allclose(fs, want_fs, atol=tol, rtol=tol)
+    say(f"  K5 graph: replay equals eager {same}; on new inputs "
+        f"max_abs_err={err:.3e}; launches {SS.ssd_scan.launches - before} "
+        f"for 2 calls {'ok' if same and ok else 'MISMATCH'}")
+    if not (same and ok) or SS.ssd_scan.launches != before + 2:
+        fail("K5 under CUDA graph capture")
 
 
 def time_ms(torch, fn, calls=20, replays=10):
@@ -637,7 +720,8 @@ def time_kernels(torch, gen):
         library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
             qd, k_live, v_live)),
         bound_ms=b_ms, bound_by=b_by,
-        tiles=_decode_tiles(torch, DA, qd, kc, vc, kvl, 4096),
+        tiles=_split_tiles(torch, DA.decode_attention, qd, kc, vc, kvl,
+                          window=4096),
         shape=f"B=1 Hq={HQ} Hkv={HKV} Smax={MAX_LEN} kv_len={kvl_n} D={D} "
               f"bf16")
 
@@ -655,7 +739,8 @@ def time_kernels(torch, gen):
         library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
             qz, kz_live, vz_live)),
         bound_ms=b_ms, bound_by=b_by,
-        tiles=_decode_tiles(torch, DA, qz, kz, vz, kvlz, ZWINDOW),
+        tiles=_split_tiles(torch, DA.decode_attention, qz, kz, vz, kvlz,
+                          window=ZWINDOW),
         shape=f"B=1 Hq=Hkv={ZHQ} Smax={MAX_LEN} kv_len={kvl_n} D={ZD} bf16")
 
     # K3: paged-batcher decode, 4 lanes of a 1024-block pool, block 16
@@ -675,6 +760,8 @@ def time_kernels(torch, gen):
             qp, kp, vp, tables, kvlp, window=4096)),
         library_ms=None,
         bound_ms=b_ms, bound_by=b_by,
+        tiles=_split_tiles(torch, DA.paged_decode_attention, qp, kp, vp,
+                          tables, kvlp, window=4096),
         shape=f"B=4 Hq={HQ} Hkv={HKV} pool=1024x16 kv_len={kv_len} D={D} bf16")
 
     # K4: the int8 paged batchers' decode, the same lanes and pool; no
@@ -716,6 +803,7 @@ def time_kernels(torch, gen):
             ms=time_ms(torch, lambda: SS.ssd_scan(*inp, chunk=L)),
             plain_ms=time_ms(torch, lambda: SS.ssd_scan_ref(*inp, chunk=L)),
             library_ms=None, bound_ms=b_ms, bound_by=b_by,
+            tiles=_ssd_passes(torch, SS, inp, N, L),
             shape=f"{arch} B=1 H={H} S={S} P={P} N={N} chunk={L} bf16")
     for name, r in out.items():
         lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
@@ -724,9 +812,22 @@ def time_kernels(torch, gen):
             f"plain_ms={r['plain_ms']:.4f} library_ms={lib}{extra} "
             f"bound_ms={r['bound_ms']:.5f} ({r['bound_by']})")
         if "tiles" in r:
-            say(f"  tiles {name:33s} ms by tile: " + " ".join(
+            what = "pass" if name.startswith("ssd_scan") else "tile"
+            say(f"  tiles {name:33s} ms by {what}: " + " ".join(
                 f"{t}={ms:.4f}" for t, ms in r["tiles"].items()))
     return out
+
+
+def _ssd_passes(torch, SS, inp, N, L):
+    """K5 one pass at a time on a workspace that a full call filled (the
+    scan rewrites it in place, so later values are not the scan's; the
+    times are)."""
+    ws = SS.workspace(inp[0], N, L)
+    SS.launch_passes(*inp, chunk=L, ws=ws)
+    times = {name: time_ms(torch, lambda: SS.launch_passes(
+        *inp, chunk=L, passes=bit, ws=ws)) for name, bit in SS.PASSES.items()}
+    times["sum"] = sum(times.values())
+    return times
 
 
 def _flash_tiles(torch, FA, q, k, v, kw):
@@ -736,10 +837,10 @@ def _flash_tiles(torch, FA, q, k, v, kw):
         q, k, v, block_q=bq, block_k=bk, **kw)) for bq in tq for bk in tk}
 
 
-def _decode_tiles(torch, DA, q, kc, vc, kvl, window):
-    """K2 at each split size block_k."""
-    return {f"block_k={bk}": time_ms(torch, lambda: DA.decode_attention(
-        q, kc, vc, kvl, window=window, block_k=bk)) for bk in (32, 64, 128)}
+def _split_tiles(torch, fn, *args, window):
+    """K2 or K3 at each split size block_k."""
+    return {f"block_k={bk}": time_ms(torch, lambda: fn(
+        *args, window=window, block_k=bk)) for bk in (32, 64, 128)}
 
 
 def phase_kernels(torch):

@@ -1,10 +1,10 @@
-// Shared device code of the CUDA-core attention kernels (K1's float32
-// flash prefill, v2; paged and int8 paged decode, K3 and K4): type
-// conversion, warp reductions, the K/V tile loaders (float or bf16, and int8
-// with per-row scales) and the online-softmax update of a group of query
-// rows against one tile. K1's bf16 kernel (v3, wgmma) and K2 (split-KV)
-// use only its constants and small helpers (conversion, 16-byte loads, the
-// shared-memory limit).
+// Shared device code of the CUDA-core tile kernels (K1's float32 flash
+// prefill, v2, and K4's int8 paged decode): type conversion, warp
+// reductions, the K/V tile loaders (float or bf16 for K1, int8 with per-row
+// scales for K4) and the online-softmax update of a group of query rows
+// against one tile. K1's bf16 kernel (v3, wgmma), K2 and K3 (split-KV) and
+// K5 (the SSD scan) use only its constants and small helpers (conversion,
+// 16-byte loads, the shared-memory limit).
 //
 // Layout in shared memory (all float32, whatever the input type):
 //   q   [rows][D]      queries of the block, pre-scaled by D^-0.5

@@ -12,8 +12,8 @@
 // K3 over int8 pools with one float32 scale per key row in scale pools
 // (num_blocks, Hkv, block_size, 1); out = softmax(q.(k*ks)).(v*vs). Its
 // tile loader (load_tile_int8) reads 16 int8 values per 16-byte load and
-// writes int8 * scale as float32 into the shared tile that the float path
-// fills, so the dequantized pool never exists in device memory.
+// writes int8 * scale as float32 into a shared float32 tile, so the
+// dequantized pool never exists in device memory.
 //
 // Bound on this card: G·2·kv_len·D multiply-adds against kv_len·2·D
 // elements read, about G/2 operations per byte in bf16, so all three are
@@ -22,52 +22,53 @@
 // kernel reaches the card's memory rate only when most of the 132 SMs issue
 // loads at once.
 //
-// K2 (v3, split-KV): the TPU kernel walks the cache in order, carrying the
-// online softmax (m, l, acc) in VMEM across grid steps. Here the KV axis is
-// split across blocks instead: grid (splits, Hkv, B), splits =
-// ceil(Smax / block_k) fixed on the host from Smax (no host sync, so the
-// launch captures into a CUDA graph), each block owning block_k keys of one
-// (lane, KV head) and all G = Hq / Hkv query heads that share it, as the TPU
-// kernel packs them into the rows of one matmul. A block reads its own
-// kv_len; one whose keys lie wholly past kv_len or left of the window
-// writes l = 0 and returns. Inside a block the warps split the keys: each
-// warp reads its keys' K and V rows once with 16-byte loads, several in
-// flight, scores them against the query rows (float32 in registers, one row
-// at a time when G = 1, else four) and keeps its own (m, l, acc); there is
-// no shared K/V tile and no __syncthreads in the key loop. The warps' partials
-// merge in shared memory into one float32 partial (acc[D], m, l) per query
-// head and split, written to a workspace (B, Hq, splits, D + 2) that the
-// wrapper allocates. A second launch on the same stream (the combine, one
-// block per (lane, query head)) merges the live splits with the usual
-// max-rescale and writes the output in q's dtype: one call is two device
-// kernels. Both dtypes run it on the CUDA cores in float32 (tensor cores buy
-// nothing for a byte-bound kernel); the split changes only the order of
-// summation.
+// K2 (v3) and K3 (v2), split-KV: the TPU kernels walk the cache in order,
+// carrying the online softmax (m, l, acc) in VMEM across grid steps. Here the
+// KV axis is split across blocks instead: grid (splits, Hkv, B), splits =
+// ceil(limit / block_k) fixed on the host from the cache's extent (Smax, or
+// block_size * max_blocks for a paged cache), never from kv_len (no host
+// sync, so the launch captures into a CUDA graph), each block owning block_k
+// keys of one (lane, KV head) and all G = Hq / Hkv query heads that share it,
+// as the TPU kernels pack them into the rows of one matmul. One kernel,
+// decode_split_kernel, serves both caches; they differ only in where key
+// row kpos lives: row kpos of the lane's (B, Hkv, Smax, D) slab, or row
+// kpos % span of pool block block_tables[b, kpos / span] (span = the pools'
+// block_size; a block reads its own table entries, as there is no scalar
+// prefetch on this card, and dead entries point at the null block 0, which
+// kv_len masks). A block reads its own kv_len; one whose keys lie wholly past
+// kv_len or left of the window writes l = 0 and returns. Inside a block the
+// warps split the keys: each warp reads its keys' K and V rows once with
+// 16-byte loads, several in flight, scores them against the query rows
+// (float32 in registers, one row at a time when G = 1, else four) and keeps
+// its own (m, l, acc); there is no shared K/V tile and no __syncthreads in
+// the key loop. The warps' partials merge in shared memory into one float32
+// partial (acc[D], m, l) per query head and split, written to a workspace
+// (B, Hq, splits, D + 2) that the wrapper allocates. A second launch on the
+// same stream (the combine, one block per (lane, query head)) merges the
+// live splits with the usual max-rescale and writes the output in q's dtype:
+// one call is two device kernels. Both dtypes run it on the CUDA cores in
+// float32 (tensor cores buy nothing for a byte-bound kernel); the split
+// changes only the order of summation.
 //
-// K3 and K4 (paged): one block per (KV head, lane), the G query heads as its
+// K4 (int8 paged): one block per (KV head, lane), the G query heads as its
 // rows, loops over 128-key tiles staged in shared memory up to kv_len
-// (attention_common.cuh); tiles left of the window are never loaded, and a
-// block reads its own kv_len and table entries (no scalar prefetch on this
-// card). They launch only B·Hkv blocks, which leaves most of the SMs idle
-// at serving batch sizes; split-KV as in K2 is later work (ROADMAP).
-#include <type_traits>
-
+// (attention_common.cuh); tiles left of the window are never loaded. It
+// launches only B·Hkv blocks, which leaves most of the SMs idle at serving
+// batch sizes; split-KV with its int8 loader is later work (ROADMAP).
 #include "attention_common.cuh"
 
 namespace repro_torch {
 
-// ------------------------------------------------ K3, K4: paged caches
-// KV is the pools' element type: T (K3) or int8_t (K4, with scale pools ks
-// and vs).
-template <typename T, typename KV, int D>
+// ------------------------------------------------ K4: int8 paged caches
+// Pools of int8 with float32 scale pools ks and vs, one scale per key row.
+template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
-decode_kernel(const T* __restrict__ q, const KV* __restrict__ k,
-              const KV* __restrict__ v, const float* __restrict__ ks,
+decode_kernel(const T* __restrict__ q, const int8_t* __restrict__ k,
+              const int8_t* __restrict__ v, const float* __restrict__ ks,
               const float* __restrict__ vs, const int* __restrict__ tables,
               const int* __restrict__ kv_len, T* __restrict__ o, int Hq,
               int Hkv, int span, int max_blocks, int window, float softcap,
               float scale, int bk) {
-  constexpr bool QUANT = std::is_same<KV, int8_t>::value;
   extern __shared__ __align__(16) float smem[];
   const int hk = blockIdx.x;
   const int b = blockIdx.y;
@@ -99,11 +100,7 @@ decode_kernel(const T* __restrict__ q, const KV* __restrict__ k,
 
   for (int k0 = k_begin; k0 < k_end; k0 += bk) {
     __syncthreads();
-    if constexpr (QUANT) {
-      load_tile_int8<D>(s, k, v, ks, vs, k0, bk, k_end, row_ptr);
-    } else {
-      load_tile<T, D>(s, k, v, k0, bk, k_end, row_ptr);
-    }
+    load_tile_int8<D>(s, k, v, ks, vs, k0, bk, k_end, row_ptr);
     __syncthreads();
     for (int r = warp; r < G; r += nwarps) {   // one row per warp
       attend_tile<D, 1>(s, r, 1, k0, bk, softcap, valid);
@@ -115,47 +112,26 @@ decode_kernel(const T* __restrict__ q, const KV* __restrict__ k,
   }
 }
 
-template <typename T, typename KV, int D>
-static int launch_decode(const void* q, const void* k, const void* v,
-                         const float* ks, const float* vs, const int* tables,
-                         const int* kv_len, void* o, int B, int Hq, int Hkv,
-                         int span, int max_blocks, int window, float softcap,
-                         float scale, int bk, cudaStream_t stream) {
+template <typename T, int D>
+static int launch_decode_int8(const void* q, const int8_t* k, const int8_t* v,
+                              const float* ks, const float* vs,
+                              const int* tables, const int* kv_len, void* o,
+                              int B, int Hq, int Hkv, int span, int max_blocks,
+                              int window, float softcap, float scale, int bk,
+                              cudaStream_t stream) {
   const size_t smem = smem_floats<D>(Hq / Hkv, bk) * sizeof(float);
-  auto kern = decode_kernel<T, KV, D>;
+  auto kern = decode_kernel<T, D>;
   static size_t allowed = 0;
   if (!raise_smem_limit(kern, smem, allowed)) return (int)cudaGetLastError();
   dim3 grid(Hkv, B);
   kern<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const KV*>(k),
-      static_cast<const KV*>(v), ks, vs, tables, kv_len, static_cast<T*>(o),
-      Hq, Hkv, span, max_blocks, window, softcap, scale, bk);
+      static_cast<const T*>(q), k, v, ks, vs, tables, kv_len,
+      static_cast<T*>(o), Hq, Hkv, span, max_blocks, window, softcap, scale,
+      bk);
   return (int)cudaGetLastError();
 }
 
-// q/out dtype 0 = float32, 1 = bfloat16; head dim 64 or 128. QUANT: int8
-// pools with float32 scale pools, else pools of q's type.
-template <bool QUANT>
-static int dispatch_decode(int dtype, int head_dim, const void* q,
-                           const void* k, const void* v, const float* ks,
-                           const float* vs, const int* tables,
-                           const int* kv_len, void* o, int B, int Hq, int Hkv,
-                           int span, int max_blocks, int window,
-                           float softcap, float scale, int bk,
-                           cudaStream_t st) {
-#define REPRO_DECODE(T, D)                                                  \
-  return launch_decode<T, typename std::conditional<QUANT, int8_t, T>::type, \
-                       D>(q, k, v, ks, vs, tables, kv_len, o, B, Hq, Hkv,   \
-                          span, max_blocks, window, softcap, scale, bk, st)
-  if (dtype == 0 && head_dim == 64) REPRO_DECODE(float, 64);
-  if (dtype == 0 && head_dim == 128) REPRO_DECODE(float, 128);
-  if (dtype == 1 && head_dim == 64) REPRO_DECODE(__nv_bfloat16, 64);
-  if (dtype == 1 && head_dim == 128) REPRO_DECODE(__nv_bfloat16, 128);
-#undef REPRO_DECODE
-  return (int)cudaErrorInvalidValue;
-}
-
-// ------------------------------------------------ K2 v3: split-KV, dense
+// ------------------------------------------------ K2 v3, K3 v2: split-KV
 constexpr int kSplitSteps = 4;  // warp steps whose loads are in flight
 
 // 16 raw bytes as floats.
@@ -177,11 +153,15 @@ __device__ __forceinline__ void unpack16(const uint4& r, float (&o)[8]) {
 
 // R: query rows a warp scores per pass over its keys (1 when G = 1, else
 // 4; G > R takes several passes, the later ones reading K/V from cache).
-template <typename T, int D, int R>
+// PAGED: k and v are pools (num_blocks, Hkv, span, D) read through
+// tables (B, max_blocks) and limit = span * max_blocks; else caches
+// (B, Hkv, limit, D) and tables is unused.
+template <typename T, int D, int R, bool PAGED>
 __global__ void __launch_bounds__(kThreads)
 decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const int* __restrict__ kv_len,
-                    float* __restrict__ ws, int Hq, int Hkv, int Smax,
+                    const T* __restrict__ v, const int* __restrict__ tables,
+                    const int* __restrict__ kv_len, float* __restrict__ ws,
+                    int Hq, int Hkv, int limit, int span, int max_blocks,
                     int window, float softcap, float scale, int bk) {
   constexpr int V = vec_len<T>();       // elements of one 16-byte load
   constexpr int LPR = D / V;            // lanes that read one key row
@@ -202,7 +182,7 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   // the live keys of this split: [s0, s1), every one of them valid
   const int kvl = kv_len[b];
-  const int k_end = min(kvl, Smax);
+  const int k_end = min(kvl, limit);
   const int k_lo = window > 0 ? max(0, kvl - window) : 0;
   const int s0 = max(split * bk, k_lo);
   const int s1 = min(split * bk + bk, k_end);
@@ -217,9 +197,17 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
     return;
   }
 
-  const size_t kv_base = ((size_t)b * Hkv + hk) * Smax * D;
-  const T* kb = k + kv_base;
-  const T* vb = v + kv_base;
+  // element offset of key row kpos in k and v
+  const size_t kv_base = PAGED ? 0 : ((size_t)b * Hkv + hk) * limit * D;
+  const int* table = PAGED ? tables + (size_t)b * max_blocks : nullptr;
+  auto row = [=](int kpos) -> size_t {
+    if constexpr (PAGED) {
+      return (((size_t)table[kpos / span] * Hkv + hk) * span + kpos % span) *
+             D;
+    } else {
+      return kv_base + (size_t)kpos * D;
+    }
+  };
   const T* qb = q + ((size_t)b * Hq + (size_t)hk * G) * D;
   const int sub = lane / LPR;           // which key of a step
   const int col = (lane % LPR) * V;     // first column this lane reads
@@ -250,8 +238,9 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const int kpos = s0 + (st0 + u * NW) * KPS + sub;
         ok[u] = kpos < s1;
         if (ok[u]) {
-          kr[u] = *reinterpret_cast<const uint4*>(kb + (size_t)kpos * D + col);
-          vr[u] = *reinterpret_cast<const uint4*>(vb + (size_t)kpos * D + col);
+          const size_t off = row(kpos) + col;
+          kr[u] = *reinterpret_cast<const uint4*>(k + off);
+          vr[u] = *reinterpret_cast<const uint4*>(v + off);
         } else {
           kr[u] = vr[u] = make_uint4(0u, 0u, 0u, 0u);
         }
@@ -377,23 +366,27 @@ decode_combine_kernel(const float* __restrict__ ws, T* __restrict__ o,
   o[row * D + d] = from_f32<T>(sum > 0.f ? a / sum : 0.f);
 }
 
-template <typename T, int D>
-static int launch_dense(const void* q, const void* k, const void* v,
-                        const int* kv_len, float* ws, void* o, int B, int Hq,
-                        int Hkv, int Smax, int window, float softcap,
-                        float scale, int bk, cudaStream_t stream) {
-  const int splits = Smax > bk ? (Smax + bk - 1) / bk : 1;
+// The split kernel then the combine, on one stream. Dense: k, v caches
+// (B, Hkv, limit, D), tables null; paged: pools and tables, limit =
+// span * max_blocks.
+template <typename T, int D, bool PAGED>
+static int launch_split(const void* q, const void* k, const void* v,
+                        const int* tables, const int* kv_len, float* ws,
+                        void* o, int B, int Hq, int Hkv, int limit, int span,
+                        int max_blocks, int window, float softcap, float scale,
+                        int bk, cudaStream_t stream) {
+  const int splits = limit > bk ? (limit + bk - 1) / bk : 1;
   const dim3 grid(splits, Hkv, B);
-  auto kern = Hq == Hkv ? decode_split_kernel<T, D, 1>
-                        : decode_split_kernel<T, D, 4>;
+  auto kern = Hq == Hkv ? decode_split_kernel<T, D, 1, PAGED>
+                        : decode_split_kernel<T, D, 4, PAGED>;
   kern<<<grid, kThreads, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), kv_len, ws, Hq, Hkv, Smax, window, softcap,
-      scale, bk);
+      static_cast<const T*>(v), tables, kv_len, ws, Hq, Hkv, limit, span,
+      max_blocks, window, softcap, scale, bk);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  decode_combine_kernel<T, D><<<dim3(Hq, B), D, 0, stream>>>(
-      ws, static_cast<T*>(o), splits);
+  auto combine = decode_combine_kernel<T, D>;
+  combine<<<dim3(Hq, B), D, 0, stream>>>(ws, static_cast<T*>(o), splits);
   return (int)cudaGetLastError();
 }
 
@@ -412,9 +405,9 @@ extern "C" int repro_decode_attention(int dtype, int head_dim, const void* q,
                                       void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define REPRO_DENSE(T, D)                                                   \
-  return launch_dense<T, D>(q, k_cache, v_cache, kv_len, workspace, o, B,  \
-                            Hq, Hkv, Smax, window, softcap, scale, block_k, \
-                            st)
+  return launch_split<T, D, false>(q, k_cache, v_cache, nullptr, kv_len,    \
+                                   workspace, o, B, Hq, Hkv, Smax, 0, 0,    \
+                                   window, softcap, scale, block_k, st)
   if (dtype == 0 && head_dim == 64) REPRO_DENSE(float, 64);
   if (dtype == 0 && head_dim == 128) REPRO_DENSE(float, 128);
   if (dtype == 1 && head_dim == 64) REPRO_DENSE(__nv_bfloat16, 64);
@@ -424,17 +417,27 @@ extern "C" int repro_decode_attention(int dtype, int head_dim, const void* q,
 }
 
 // K3. pools (num_blocks, Hkv, block_size, D); block_tables (B, max_blocks)
-// int32, every entry a valid pool index; kv_len (B,) int32.
+// int32, every entry a valid pool index; kv_len (B,) int32; workspace
+// (B, Hq, max(1, ceil(block_size * max_blocks / block_k)), D + 2) float32.
 extern "C" int repro_paged_decode_attention(
     int dtype, int head_dim, const void* q, const void* k_pool,
-    const void* v_pool, const int* block_tables, const int* kv_len, void* o,
-    int B, int Hq, int Hkv, int block_size, int max_blocks, int window,
-    float softcap, float scale, int block_k, void* stream) {
-  return dispatch_decode<false>(dtype, head_dim, q, k_pool, v_pool, nullptr,
-                                nullptr, block_tables, kv_len, o, B, Hq, Hkv,
-                                block_size, max_blocks, window, softcap,
-                                scale, block_k,
-                                static_cast<cudaStream_t>(stream));
+    const void* v_pool, const int* block_tables, const int* kv_len,
+    float* workspace, void* o, int B, int Hq, int Hkv, int block_size,
+    int max_blocks, int window, float softcap, float scale, int block_k,
+    void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define REPRO_PAGED(T, D)                                                   \
+  return launch_split<T, D, true>(q, k_pool, v_pool, block_tables, kv_len,  \
+                                  workspace, o, B, Hq, Hkv,                 \
+                                  block_size * max_blocks, block_size,      \
+                                  max_blocks, window, softcap, scale,       \
+                                  block_k, st)
+  if (dtype == 0 && head_dim == 64) REPRO_PAGED(float, 64);
+  if (dtype == 0 && head_dim == 128) REPRO_PAGED(float, 128);
+  if (dtype == 1 && head_dim == 64) REPRO_PAGED(__nv_bfloat16, 64);
+  if (dtype == 1 && head_dim == 128) REPRO_PAGED(__nv_bfloat16, 128);
+#undef REPRO_PAGED
+  return (int)cudaErrorInvalidValue;
 }
 
 // K4. k/v pools (num_blocks, Hkv, block_size, D) int8; k/v scale pools
@@ -447,9 +450,18 @@ extern "C" int repro_paged_decode_attention_int8(
     const int* block_tables, const int* kv_len, void* o, int B, int Hq,
     int Hkv, int block_size, int max_blocks, int window, float softcap,
     float scale, int block_k, void* stream) {
-  return dispatch_decode<true>(dtype, head_dim, q, k_pool, v_pool,
-                               k_scale_pool, v_scale_pool, block_tables,
-                               kv_len, o, B, Hq, Hkv, block_size, max_blocks,
-                               window, softcap, scale, block_k,
-                               static_cast<cudaStream_t>(stream));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int8_t* k = static_cast<const int8_t*>(k_pool);
+  const int8_t* v = static_cast<const int8_t*>(v_pool);
+#define REPRO_INT8(T, D)                                                    \
+  return launch_decode_int8<T, D>(q, k, v, k_scale_pool, v_scale_pool,     \
+                                  block_tables, kv_len, o, B, Hq, Hkv,     \
+                                  block_size, max_blocks, window, softcap, \
+                                  scale, block_k, st)
+  if (dtype == 0 && head_dim == 64) REPRO_INT8(float, 64);
+  if (dtype == 0 && head_dim == 128) REPRO_INT8(float, 128);
+  if (dtype == 1 && head_dim == 64) REPRO_INT8(__nv_bfloat16, 64);
+  if (dtype == 1 && head_dim == 128) REPRO_INT8(__nv_bfloat16, 128);
+#undef REPRO_INT8
+  return (int)cudaErrorInvalidValue;
 }

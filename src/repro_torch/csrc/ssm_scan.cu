@@ -2,84 +2,303 @@
 //
 // Replaces the Pallas TPU kernel repro/kernels/ssm_scan.py (ssd_scan, body
 // _ssd_kernel). Per chunk of L steps of one (lane, head): the within-chunk
-// cumulative decay cum = cumsum(dt * A), an L x L score matrix
+// cumulative decay cum = cumsum(dt * A), the scores
 // att[i, j] = (C_i . B_j) * exp(cum_i - cum_j) * dt_j for j <= i (0 above the
 // diagonal, which never reaches exp: there cum_i - cum_j > 0 and overflows),
-// y = att @ x + exp(cum) * (C @ state^T), and the carried (P, N) state
-// state <- exp(cum_L) * state + sum_j exp(cum_L - cum_j) dt_j x_j B_j^T.
+// y = att @ x + exp(cum) * (C @ S_in^T) with S_in the state entering the
+// chunk, and the carried (P, N) state
+// S_out = exp(cum_L) * S_in + sum_j exp(cum_L - cum_j) dt_j x_j B_j^T.
 // x (B, H, S, P) and y in the input type; dt (B, H, S) and A (H,) float32;
 // B and C (B, S, N) shared by every head; the final state (B, H, P, N) f32.
-// P is 32 or 64 and N 32, 64 or 128 (the reduced and full mamba2-130m and
-// zamba2-1.2b), each pair its own instantiation.
+// P is 32 or 64, N 32, 64 or 128 and L 32 or 128 (the reduced and full
+// mamba2-130m and zamba2-1.2b), each triple its own instantiation.
 //
-// The TPU grid (B, H, chunks) walked the chunks in order and kept the state
-// in VMEM scratch between grid steps. Blocks on this card run in no order,
-// so one block owns one (lane, head) and loops over its chunks; each thread
-// keeps its 4 x (4 N / P) share of the float32 state in registers, and a
-// transposed copy goes to shared memory once per chunk for the C @ state
-// term. A ragged tail is masked in the block, as the TPU wrapper's padding
-// did: rows past S load as zeros with dt = 0 (an identity step with zero
-// output) and are never stored.
+// The TPU grid (B, H, chunks) walked the chunks in order and carried the
+// state in VMEM scratch. Blocks on this card run in no order, and one block
+// per (lane, head) walking its chunks left most of the 132 SMs idle (24
+// blocks for mamba2-130m at one lane). Here the carry is split out, as in
+// the chunked plain version, and a call is three device kernels on one
+// stream:
+//   1. ssd_chunk_state_kernel, one block per (chunk, head, lane): cum, the
+//      chunk's total decay and its local state (x * w)^T @ B with
+//      w_j = exp(cum_L - cum_j) dt_j, written to a float32 workspace
+//      (B, H, chunks, P, N) beside the totals (B, H, chunks);
+//   2. ssd_state_scan_kernel, over (state slice, head, lane): the scan
+//      S_c = exp(total_c) S_{c-1} + local_c, elementwise in float32, which
+//      overwrites each chunk's local state with the state entering it and
+//      writes the final state;
+//   3. ssd_output_kernel, one block per (row slab, chunk, head, lane), R = 64
+//      rows (32 at L = 32): y for the slab's rows from C @ B^T, att @ x and
+//      C @ S_in^T.
+// So every chunk runs at once: 96 + 24 * 8 + 192 blocks (mamba2-130m) and
+// 256 + 256 + 512 (zamba2-1.2b) at one lane of 512 steps.
 //
-// cum is summed in float64 (a warp scan over L values per chunk): every
-// decay is exp(cum_i - cum_j), the difference of two sums that reach tens
-// in magnitude, and in float32 that cancellation alone costs about 2e-5 on
-// y at mamba2-130m's shapes, the whole float32 tolerance. The plain version
-// does the same; everything else is float32.
+// The products run as warp tiles of m16n8k16: C @ B^T, att @ x and
+// C @ S_in^T in pass 3 and (x * w)^T @ B in pass 1. In bf16 they are
+// `mma.sync` on the tensor cores with float32 accumulation; C @ B^T comes
+// out as accumulator fragments that become att in registers (the mask and
+// decay applied per element) and then the A operand of att @ x, so att never
+// touches shared memory. In float32 the same fragments are multiplied by
+// float32 FMA on the CUDA cores (the values a lane lacks come by shuffle);
+// TF32 would miss the 2e-5 gate. Three operands of the bf16 products are
+// computed values, not inputs: att (before att @ x), x * w (before the
+// chunk-state product) and S_in (before C @ S_in^T). Rounding each to bf16
+// once came within 0.9 of the 5e-2 gate on the CPU mirror and missed it
+// on the card (1 element in 460,800), so each is carried as a hi + lo pair
+// of bf16 values, hi = bf16(v) and lo = bf16(v - hi), and its product is
+// two MMAs; what is left is the rounding of y to bf16 (the CPU tests
+// mirror both). Everything else (C @ B^T, the decays, the scan, the final
+// state) is float32. C @ B^T is computed by every head's pass 3, from B and
+// C in shared memory, rather than once per (lane, chunk) into device
+// memory: a shared copy would be read back at the same bytes that staging B
+// costs.
 //
-// Shared memory, float32 whatever the input type: x [L][P], B and C
-// [L][N + 4] (the padding makes lane j's row reads conflict-free), the
-// transposed state [N][P], 32 rows of att at a time [32][L + 4] (the full
-// L x L would not fit beside the tiles), cum [L] as float64, and dt, the
-// carry weights and exp(cum) [L] each: 220,160 bytes at L = 128, P = 64,
-// N = 128 (mamba2-130m), under the 227 KB a block may ask for; the limit is
-// set per instantiation.
+// Staging: rows of x, B and C are copied into shared memory as they lie in
+// device memory, by cp.async (every copy of a block in flight at once, no
+// registers); operands that the products read across rows (x in att @ x,
+// x * w and B in the chunk-state product) are loaded with ldmatrix .trans,
+// so nothing is transposed on the way in. Tiles that are converted on the
+// way (x * w, and S_in from the float32 workspace) keep four 16-byte loads
+// in flight per thread. A block's copies overlap its float64 cumsum.
+//
+// cum is summed in float64 (a warp scan over L values per chunk, the same
+// code in passes 1 and 3): every decay is exp(cum_i - cum_j), the difference
+// of two sums that reach tens in magnitude, and in float32 that cancellation
+// alone costs about 2e-5 on y at mamba2-130m's shapes, the whole float32
+// tolerance. The plain version does the same.
+//
+// A ragged tail is masked in the blocks, as the TPU wrapper's padding did:
+// rows past S load as zeros with dt = 0 (an identity step with zero output)
+// and are never stored.
 //
 // Bound on this card: per (lane, head, chunk) 2L^2 N + 2L^2 P + 4LPN
-// operations against x and y once, B and C once per (lane, chunk): about
-// 1 GFLOP and 4 MB for one mamba2-130m layer at S = 512, so the card's
-// bound is the bytes (~1.3 us). This version is far from it: the products
-// are float32 FMA on the CUDA cores, and only B * H blocks run (24 for
-// mamba2-130m and 64 for zamba2-1.2b at one lane, on 132 SMs). Splitting the
-// chunks over blocks (chunk states in parallel, a short scan over chunks,
-// then the outputs) and tensor-core tiles are later work (ROADMAP).
+// operations against x and y once and B and C once per (lane, chunk): about
+// 1 GFLOP and 4 MB for one mamba2-130m layer at S = 512, so the bound is the
+// bytes (~1.3 us). The workspace (1 MB per (lane, head) of 4 chunks at
+// P = 64, N = 128) stays in the 50 MB L2 between the passes.
 #include "attention_common.cuh"
 
 namespace repro_torch {
 
-constexpr int kSlab = 32;     // rows of att held at a time
-constexpr int kPad = 4;       // row padding of the B, C and att tiles
+constexpr int kPadE = 8;          // row padding (elements) of operand tiles
+constexpr int kScanThreads = 256;
+constexpr int kTileThreads = 128;   // pass 1's block, pass 3's largest
 
-// Floats of shared memory for head dim P, state dim N and chunk L.
-template <int P, int N>
-__host__ __device__ constexpr size_t ssd_smem_floats(int L) {
-  return (size_t)L * P + 2 * (size_t)L * (N + kPad) + (size_t)N * P +
-         (size_t)kSlab * (L + kPad) + 5 * (size_t)L;
+// ------------------------------------------------ one warp's 16x8x16 product
+// Fragments as mma.m16n8k16 lays them out, lane = 4 g + t: the A operand
+// (16 x 16, row-major) holds rows g and g + 8 at columns 2t, 2t + 1, 2t + 8,
+// 2t + 9; the B operand (16 x 8) holds column g at rows 2t, 2t + 1, 2t + 8,
+// 2t + 9; the accumulator (16 x 8, float32) rows g and g + 8 at columns 2t
+// and 2t + 1. Both operands are read from shared tiles whose rows run along
+// the reduced dimension: A as [m][k], B as [n][k].
+template <typename E> struct Mma;
+
+// ldmatrix .trans: lane l gives the address of row l % 8 of 8 x 8 matrix
+// l / 8 (16 bytes of b16); register i receives rows 2t and 2t + 1 of column
+// g of matrix i, that is the operand of a tile kept across its rows.
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
+                                              const void* row) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(row));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+__device__ __forceinline__ void ldsm_x2_trans(uint32_t (&r)[2],
+                                              const void* row) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(row));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
+      : "r"(a));
 }
 
-// Rows [0, L) of a row-major (rows, W) tile at src into dst (row stride ld
-// floats), as float32; rows at or past `valid` are zeros.
-template <typename T>
-__device__ void load_rows(float* __restrict__ dst, int ld,
-                          const T* __restrict__ src, int W, int valid, int L) {
-  constexpr int V = vec_len<T>();
-  const int per_row = W / V;
-  for (int c = threadIdx.x; c < L * per_row; c += blockDim.x) {
-    const int r = c / per_row;
-    const int col = (c - r * per_row) * V;
-    float f[V];
-    if (r < valid) {
-      load16(src + (size_t)r * W + col, f);
-    } else {
+// 16 bytes from device to shared memory without registers; src_bytes 0
+// writes zeros (src is then not read).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :
+               : "r"(d), "l"(src), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+__device__ __forceinline__ float bf16_residual(float v) {
+  return v - __bfloat162float(__float2bfloat16(v));
+}
+
+template <> struct Mma<__nv_bfloat16> {
+  using E = __nv_bfloat16;
+  static constexpr bool kSplit = true;   // rounded values as hi + lo
+  struct A { uint32_t r[4]; };
+  struct B { uint32_t r[2]; };
+
+  static __device__ __forceinline__ A load_a(const E* s, int ld, int m0,
+                                             int k0) {
+    const int lane = threadIdx.x & 31;
+    const E* p = s + (size_t)(m0 + (lane >> 2)) * ld + k0 + 2 * (lane & 3);
+    return A{{ld32(p), ld32(p + 8 * ld), ld32(p + 8), ld32(p + 8 * ld + 8)}};
+  }
+  static __device__ __forceinline__ B load_b(const E* s, int ld, int n0,
+                                             int k0) {
+    const int lane = threadIdx.x & 31;
+    const E* p = s + (size_t)(n0 + (lane >> 2)) * ld + k0 + 2 * (lane & 3);
+    return B{{ld32(p), ld32(p + 8)}};
+  }
+  // The same operands from tiles kept across their rows: A as [k][m], B as
+  // [k][n] (ldmatrix .trans; matrices (k0, m0), (k0, m0 + 8), (k0 + 8, m0),
+  // (k0 + 8, m0 + 8) for A, (k0, n0), (k0 + 8, n0) for B).
+  static __device__ __forceinline__ A load_a_t(const E* s, int ld, int m0,
+                                               int k0) {
+    const int lane = threadIdx.x & 31;
+    const int mat = lane >> 3;
+    A f;
+    ldsm_x4_trans(f.r, s + (size_t)(k0 + (lane & 7) + 8 * (mat >> 1)) * ld +
+                           m0 + 8 * (mat & 1));
+    return f;
+  }
+  static __device__ __forceinline__ B load_b_t(const E* s, int ld, int n0,
+                                               int k0) {
+    const int lane = threadIdx.x & 31;
+    B f;
+    ldsm_x2_trans(f.r, s + (size_t)(k0 + (lane & 15)) * ld + n0);
+    return f;
+  }
+  // The A operand of columns [k0, k0 + 16) from the accumulators of columns
+  // [k0, k0 + 8) (c0) and [k0 + 8, k0 + 16) (c1), rounded to bf16.
+  static __device__ __forceinline__ A from_acc(const float (&c0)[4],
+                                               const float (&c1)[4]) {
+    return A{{pack_bf16(c0[0], c0[1]), pack_bf16(c0[2], c0[3]),
+              pack_bf16(c1[0], c1[1]), pack_bf16(c1[2], c1[3])}};
+  }
+  // What from_acc's rounding left out, rounded to bf16 (the lo half).
+  static __device__ __forceinline__ A from_acc_lo(const float (&c0)[4],
+                                                  const float (&c1)[4]) {
+    return A{{pack_bf16(bf16_residual(c0[0]), bf16_residual(c0[1])),
+              pack_bf16(bf16_residual(c0[2]), bf16_residual(c0[3])),
+              pack_bf16(bf16_residual(c1[0]), bf16_residual(c1[1])),
+              pack_bf16(bf16_residual(c1[2]), bf16_residual(c1[3]))}};
+  }
+  static __device__ __forceinline__ void mma(float (&c)[4], const A& a,
+                                             const B& b) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+        "{%10, %11, %12, %13};\n"
+        : "=f"(c[0]), "=f"(c[1]), "=f"(c[2]), "=f"(c[3])
+        : "r"(a.r[0]), "r"(a.r[1]), "r"(a.r[2]), "r"(a.r[3]), "r"(b.r[0]),
+          "r"(b.r[1]), "f"(c[0]), "f"(c[1]), "f"(c[2]), "f"(c[3]));
+  }
+};
+
+template <> struct Mma<float> {
+  using E = float;
+  static constexpr bool kSplit = false;   // nothing is rounded
+  // A: (g, 2t..), (g + 8, 2t..), (g, 2t + 8..), (g + 8, 2t + 8..), two each;
+  // B: rows 2t, 2t + 1, 2t + 8, 2t + 9 of column g
+  struct A { float r[8]; };
+  struct B { float r[4]; };
+
+  static __device__ __forceinline__ void ld2(const float* p, float* o) {
+    const float2 v = *reinterpret_cast<const float2*>(p);
+    o[0] = v.x;
+    o[1] = v.y;
+  }
+  static __device__ __forceinline__ A load_a(const E* s, int ld, int m0,
+                                             int k0) {
+    const int lane = threadIdx.x & 31;
+    const E* p = s + (size_t)(m0 + (lane >> 2)) * ld + k0 + 2 * (lane & 3);
+    A f;
+    ld2(p, f.r);
+    ld2(p + 8 * ld, f.r + 2);
+    ld2(p + 8, f.r + 4);
+    ld2(p + 8 * ld + 8, f.r + 6);
+    return f;
+  }
+  static __device__ __forceinline__ B load_b(const E* s, int ld, int n0,
+                                             int k0) {
+    const int lane = threadIdx.x & 31;
+    const E* p = s + (size_t)(n0 + (lane >> 2)) * ld + k0 + 2 * (lane & 3);
+    B f;
+    ld2(p, f.r);
+    ld2(p + 8, f.r + 2);
+    return f;
+  }
+  static __device__ __forceinline__ A load_a_t(const E* s, int ld, int m0,
+                                               int k0) {
+    const int lane = threadIdx.x & 31;
+    const E* p = s + (size_t)(k0 + 2 * (lane & 3)) * ld + m0 + (lane >> 2);
+    const E* q = p + 8 * ld;
+    return A{{p[0], p[ld], p[8], p[ld + 8], q[0], q[ld], q[8], q[ld + 8]}};
+  }
+  static __device__ __forceinline__ B load_b_t(const E* s, int ld, int n0,
+                                               int k0) {
+    const int lane = threadIdx.x & 31;
+    const E* p = s + (size_t)(k0 + 2 * (lane & 3)) * ld + n0 + (lane >> 2);
+    return B{{p[0], p[ld], p[8 * ld], p[9 * ld]}};
+  }
+  static __device__ __forceinline__ A from_acc(const float (&c0)[4],
+                                               const float (&c1)[4]) {
+    return A{{c0[0], c0[1], c0[2], c0[3], c1[0], c1[1], c1[2], c1[3]}};
+  }
+  // c[row][col] += sum_k a[row][k] b[k][col]: lane (g, t) gathers rows g,
+  // g + 8 of A from lanes 4g + s and columns 2t, 2t + 1 of B from lanes
+  // 8t + s and 8t + 4 + s, s = 0..3 (each holds k = 2s, 2s + 1, 2s + 8,
+  // 2s + 9).
+  static __device__ __forceinline__ void mma(float (&c)[4], const A& a,
+                                             const B& b) {
+    const int lane = threadIdx.x & 31;
+    const int g = lane >> 2;
+    const int t = lane & 3;
 #pragma unroll
-      for (int i = 0; i < V; ++i) f[i] = 0.f;
-    }
-    float4* d = reinterpret_cast<float4*>(dst + (size_t)r * ld + col);
+    for (int s = 0; s < 4; ++s) {
+      const int la = 4 * g + s;
+      const int lb0 = 8 * t + s;
+      const int lb1 = 8 * t + 4 + s;
+      float r0[4], r8[4], b0[4], b1[4];
+      r0[0] = __shfl_sync(kFull, a.r[0], la);
+      r0[1] = __shfl_sync(kFull, a.r[1], la);
+      r0[2] = __shfl_sync(kFull, a.r[4], la);
+      r0[3] = __shfl_sync(kFull, a.r[5], la);
+      r8[0] = __shfl_sync(kFull, a.r[2], la);
+      r8[1] = __shfl_sync(kFull, a.r[3], la);
+      r8[2] = __shfl_sync(kFull, a.r[6], la);
+      r8[3] = __shfl_sync(kFull, a.r[7], la);
 #pragma unroll
-    for (int i = 0; i < V / 4; ++i) {
-      d[i] = make_float4(f[4 * i], f[4 * i + 1], f[4 * i + 2], f[4 * i + 3]);
+      for (int e = 0; e < 4; ++e) {
+        b0[e] = __shfl_sync(kFull, b.r[e], lb0);
+        b1[e] = __shfl_sync(kFull, b.r[e], lb1);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        c[0] = fmaf(r0[e], b0[e], c[0]);
+        c[1] = fmaf(r0[e], b1[e], c[1]);
+        c[2] = fmaf(r8[e], b0[e], c[2]);
+        c[3] = fmaf(r8[e], b1[e], c[3]);
+      }
     }
   }
+};
+
+// Two consecutive values into p (2-element aligned).
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
 // C consecutive values (C a multiple of 4, p aligned to 4 elements).
@@ -104,242 +323,428 @@ __device__ __forceinline__ void store_row(__nv_bfloat16* p,
   }
 }
 
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
+// ------------------------------------------------ staging
+// dt of the chunk into dts[0, L) (0 past `valid`), then cum[j] = sum_{i<=j}
+// dt_i * a in float64 by warp 0: L / 32 consecutive steps per lane, then a
+// shuffle scan over the lanes' sums. Ends synchronised.
+__device__ void chunk_cumsum(const float* __restrict__ dtc, float a,
+                             float* dts, double* cum, int valid, int L) {
+  for (int j = threadIdx.x; j < L; j += blockDim.x) {
+    dts[j] = j < valid ? dtc[j] : 0.f;
+  }
+  __syncthreads();
+  if (threadIdx.x < 32) {
+    const int lane = threadIdx.x;
+    const int per = L / 32;
+    double g[4];
+    double run = 0.0;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      if (k < per) {
+        run += (double)(dts[lane * per + k] * a);
+        g[k] = run;
+      }
+    }
+    double incl = run;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const double v = __shfl_up_sync(kFull, incl, o);
+      if (lane >= o) incl += v;
+    }
+    const double base = incl - run;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      if (k < per) cum[lane * per + k] = base + g[k];
+    }
+  }
+  __syncthreads();
 }
 
-template <typename T, int P, int N>
-__global__ void __launch_bounds__(kThreads)
-ssd_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
-                const float* __restrict__ A, const T* __restrict__ Bm,
-                const T* __restrict__ Cm, T* __restrict__ y,
-                float* __restrict__ final_state, int H, int S, int L) {
-  constexpr int NB = N + kPad;      // row stride of the B and C tiles
-  constexpr int CG = kThreads / (P / 4);  // column groups of the state
-  constexpr int NG = N / CG;        // state columns per thread
-  constexpr int CP = P / 8;         // output columns per thread
-  static_assert(P * N == kThreads * 4 * NG, "state split over the block");
-  static_assert(CP % 4 == 0, "output columns in float4s");
-  extern __shared__ __align__(16) float smem[];
-  const int h = blockIdx.x;
-  const int b = blockIdx.y;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int LB = L + kPad;          // row stride of att
-  float* xs = smem;
-  float* bs = xs + (size_t)L * P;
-  float* cs = bs + (size_t)L * NB;
-  float* st = cs + (size_t)L * NB;  // incoming state, transposed [N][P]
-  float* att = st + (size_t)N * P;
-  double* cum = reinterpret_cast<double*>(att + (size_t)kSlab * LB);
-  float* dts = reinterpret_cast<float*>(cum + L);
-  float* wts = dts + L;             // exp(cum_L - cum_j) * dt_j
-  float* ecum = wts + L;            // exp(cum_i)
-
-  const float a = A[h];
-  const size_t bh = (size_t)b * H + h;
-  const T* xbh = x + bh * S * P;
-  const float* dtbh = dt + bh * S;
-  const T* bb = Bm + (size_t)b * S * N;
-  const T* cb = Cm + (size_t)b * S * N;
-  T* ybh = y + bh * S * P;
-
-  // this thread's share of the state: rows 4pg..4pg+3, columns NG*ng..
-  const int pg = tid / CG;
-  const int ng = tid % CG;
-  float state[4][NG];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int k = 0; k < NG; ++k) state[i][k] = 0.f;
+// dst row r (row stride ld) <- src row r0 + r of the row-major (., W) tile
+// at src, by cp.async; rows at or past `valid` are zeros. src row 0 exists.
+// The caller waits (cp_async_wait_all) and synchronises.
+template <typename T>
+__device__ void stage_rows(T* dst, int ld, const T* __restrict__ src, int r0,
+                           int W, int valid, int rows) {
+  constexpr int V = vec_len<T>();
+  const int per_row = W / V;
+  for (int c = threadIdx.x; c < rows * per_row; c += blockDim.x) {
+    const int r = c / per_row;
+    const int col = (c - r * per_row) * V;
+    const bool ok = r0 + r < valid;
+    cp_async16(dst + (size_t)r * ld + col,
+               ok ? src + (size_t)(r0 + r) * W + col : src, ok ? 16 : 0);
   }
+}
 
-  const int nc = (S + L - 1) / L;
-  for (int c = 0; c < nc; ++c) {
-    const int s0 = c * L;
-    const int valid = min(L, S - s0);
+// dst row r <- src row r, times w[r] when w is given, rounded to T; rows at
+// or past `valid` are zeros. With lo (bf16 only), lo row r <- what the
+// rounding left out, rounded too, so that hi + lo carries about 16 bits.
+// kInFlight 16-byte loads in flight per thread.
+template <typename T, typename S>
+__device__ void stage_convert(T* dst, T* lo, int ld, const S* __restrict__ src,
+                              int W, int valid, int rows, const float* w) {
+  constexpr int V = vec_len<S>();
+  const int per_row = W / V;
+  const int n = rows * per_row;
+  for (int base = threadIdx.x; base < n; base += kInFlight * blockDim.x) {
+    float f[kInFlight][V];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int k = 0; k < NG; ++k) st[(NG * ng + k) * P + 4 * pg + i] = state[i][k];
-    }
-    load_rows<T>(xs, P, xbh + (size_t)s0 * P, P, valid, L);
-    load_rows<T>(bs, NB, bb + (size_t)s0 * N, N, valid, L);
-    load_rows<T>(cs, NB, cb + (size_t)s0 * N, N, valid, L);
-    for (int i = tid; i < L; i += blockDim.x) dts[i] = i < valid ? dtbh[s0 + i] : 0.f;
-    __syncthreads();
-
-    // cum = inclusive cumsum(dt * A) in float64: warp 0, L / 32
-    // consecutive steps per lane, then a shuffle scan over the lanes' sums
-    if (warp == 0) {
-      const int per = L / 32;
-      double g[4];
-      double run = 0.0;
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        if (k < per) {
-          run += (double)(dts[lane * per + k] * a);
-          g[k] = run;
-        }
-      }
-      double incl = run;
-#pragma unroll
-      for (int o = 1; o < 32; o <<= 1) {
-        const double v = __shfl_up_sync(kFull, incl, o);
-        if (lane >= o) incl += v;
-      }
-      const double base = incl - run;
-      const double total = __shfl_sync(kFull, incl, 31);
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        if (k < per) {
-          const int j = lane * per + k;
-          const double cj = base + g[k];
-          cum[j] = cj;
-          wts[j] = expf((float)(total - cj)) * dts[j];
-          ecum[j] = expf((float)cj);
-        }
-      }
-    }
-    __syncthreads();
-
-    // outputs, 32 rows at a time
-    for (int s = 0; s * kSlab < valid; ++s) {
-      const int i0 = s * kSlab;
-      // att rows i0 + 4 warp .. +3 (one warp), columns lane + 32 jj, jj <= s
-      // (blocks right of the slab's last row are all masked)
-      float acc[4][4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-#pragma unroll
-        for (int jj = 0; jj < 4; ++jj) acc[r][jj] = 0.f;
-      }
-      const float* crow = cs + (size_t)(i0 + 4 * warp) * NB;
-      for (int n = 0; n < N; n += 4) {
-        float4 cv[4];
-#pragma unroll
-        for (int r = 0; r < 4; ++r) cv[r] = ld4(crow + r * NB + n);
-#pragma unroll
-        for (int jj = 0; jj < 4; ++jj) {
-          if (jj <= s) {
-            const float4 bv = ld4(bs + (size_t)(lane + 32 * jj) * NB + n);
-#pragma unroll
-            for (int r = 0; r < 4; ++r) {
-              acc[r][jj] += cv[r].x * bv.x + cv[r].y * bv.y + cv[r].z * bv.z +
-                            cv[r].w * bv.w;
-            }
-          }
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int i = i0 + 4 * warp + r;
-#pragma unroll
-        for (int jj = 0; jj < 4; ++jj) {
-          if (jj <= s) {
-            const int j = lane + 32 * jj;
-            att[(4 * warp + r) * LB + j] =
-                j <= i ? acc[r][jj] * expf((float)(cum[i] - cum[j])) * dts[j]
-                       : 0.f;
-          }
-        }
-      }
-      __syncthreads();
-
-      // row i0 + tid / 8, columns CP (tid % 8) .. +CP-1
-      const int r = tid >> 3;
-      const int p0 = (tid & 7) * CP;
-      const int i = i0 + r;
-      float o[CP], q[CP];
-#pragma unroll
-      for (int k = 0; k < CP; ++k) o[k] = q[k] = 0.f;
-      const float* arow = att + (size_t)r * LB;
-      for (int j = 0; j < i0 + kSlab; ++j) {       // att is 0 past i
-        const float aij = arow[j];
-#pragma unroll
-        for (int k = 0; k < CP; k += 4) {
-          const float4 xv = ld4(xs + (size_t)j * P + p0 + k);
-          o[k] += aij * xv.x; o[k + 1] += aij * xv.y;
-          o[k + 2] += aij * xv.z; o[k + 3] += aij * xv.w;
-        }
-      }
-      const float* ci = cs + (size_t)i * NB;
-      for (int n = 0; n < N; ++n) {
-        const float cn = ci[n];
-#pragma unroll
-        for (int k = 0; k < CP; k += 4) {
-          const float4 sv = ld4(st + (size_t)n * P + p0 + k);
-          q[k] += cn * sv.x; q[k + 1] += cn * sv.y;
-          q[k + 2] += cn * sv.z; q[k + 3] += cn * sv.w;
-        }
-      }
-      if (i < valid) {
-        const float e = ecum[i];
-#pragma unroll
-        for (int k = 0; k < CP; ++k) o[k] += e * q[k];
-        store_row<CP>(ybh + (size_t)(s0 + i) * P + p0, o);
-      }
-      __syncthreads();                             // att is rewritten next
-    }
-
-    // carry: state <- exp(cum_L) state + sum_j (w_j x_j) B_j^T
-    const float decay = expf((float)cum[L - 1]);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int k = 0; k < NG; ++k) state[i][k] *= decay;
-    }
-    for (int j = 0; j < valid; ++j) {
-      const float wj = wts[j];
-      const float4 xv = ld4(xs + (size_t)j * P + 4 * pg);
-      const float xw[4] = {xv.x * wj, xv.y * wj, xv.z * wj, xv.w * wj};
-      float bv[NG];
-      const float* brow = bs + (size_t)j * NB + NG * ng;
-      if constexpr (NG % 4 == 0) {
-#pragma unroll
-        for (int k = 0; k < NG; k += 4) {
-          const float4 v = ld4(brow + k);
-          bv[k] = v.x; bv[k + 1] = v.y; bv[k + 2] = v.z; bv[k + 3] = v.w;
-        }
+    for (int u = 0; u < kInFlight; ++u) {
+      const int c = base + u * blockDim.x;
+      const int r = c / per_row;
+      if (c < n && r < valid) {
+        load16(src + (size_t)r * W + (c - r * per_row) * V, f[u]);
       } else {
 #pragma unroll
-        for (int k = 0; k < NG; ++k) bv[k] = brow[k];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-#pragma unroll
-        for (int k = 0; k < NG; ++k) state[i][k] += xw[i] * bv[k];
+        for (int i = 0; i < V; ++i) f[u][i] = 0.f;
       }
     }
-    __syncthreads();                               // tiles are reloaded next
-  }
-
-  float* fs = final_state + bh * P * N;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    float* row = fs + (size_t)(4 * pg + i) * N + NG * ng;
-    if constexpr (NG % 4 == 0) {
-      store_row<NG>(row, state[i]);
-    } else {
+    for (int u = 0; u < kInFlight; ++u) {
+      const int c = base + u * blockDim.x;
+      if (c < n) {
+        const int r = c / per_row;
+        if (w != nullptr && r < valid) {
+          const float wr = w[r];
 #pragma unroll
-      for (int k = 0; k < NG; ++k) row[k] = state[i][k];
+          for (int i = 0; i < V; ++i) f[u][i] *= wr;
+        }
+        const size_t off = (size_t)r * ld + (c - r * per_row) * V;
+        store_row<V>(dst + off, f[u]);
+        if (lo != nullptr) {
+#pragma unroll
+          for (int i = 0; i < V; ++i) f[u][i] = bf16_residual(f[u][i]);
+          store_row<V>(lo + off, f[u]);
+        }
+      }
     }
   }
 }
 
+// ------------------------------------------------ pass 1: chunk states
+constexpr int kMaxChunk = 128;
+
+// Shared memory: cum [L] float64, dt and w [L] float32 each, then in T the
+// chunk's rows of x * w [L][P + pad] (and its lo half in bf16) and of B
+// [L][N + pad].
 template <typename T, int P, int N>
+__host__ __device__ constexpr size_t state_smem_bytes(int L) {
+  return (size_t)L * 16 +
+         (size_t)L * ((Mma<T>::kSplit ? 2 : 1) * (P + kPadE) + (N + kPadE)) *
+             sizeof(T);
+}
+
+// Warp w owns 16 rows of the (P, N) state, m0 = 16 (w % (P / 16)), and NTW
+// column tiles of 8 from (w / (P / 16)) NTW: one A operand per k step
+// serves NTW independent products.
+template <typename T, int P, int N>
+__global__ void __launch_bounds__(kTileThreads)
+ssd_chunk_state_kernel(const T* __restrict__ x, const float* __restrict__ dt,
+                       const float* __restrict__ A, const T* __restrict__ Bm,
+                       float* __restrict__ states, float* __restrict__ totals,
+                       int H, int S, int L) {
+  using M = Mma<T>;
+  constexpr int LP = P + kPadE;   // row stride of the x * w tile
+  constexpr int LN = N + kPadE;   // row stride of the B tile
+  constexpr int MT = P / 16;
+  constexpr int NTW = (N / 8) * MT / (kTileThreads / 32);
+  static_assert(NTW * (kTileThreads / 32) == (N / 8) * MT, "tiles per warp");
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int c = blockIdx.x;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int nc = gridDim.x;
+  const int s0 = c * L;
+  const int valid = min(L, S - s0);
+  double* cum = reinterpret_cast<double*>(smem);
+  float* dts = reinterpret_cast<float*>(cum + L);
+  float* wts = dts + L;
+  T* xw = reinterpret_cast<T*>(wts + L);   // [L][LP]
+  T* bs = xw + (size_t)L * LP;             // [L][LN]
+  T* xw_lo = M::kSplit ? bs + (size_t)L * LN : nullptr;   // [L][LP]
+
+  const size_t bh = (size_t)b * H + h;
+  stage_rows<T>(bs, LN, Bm + ((size_t)b * S + s0) * N, 0, N, valid, L);
+  chunk_cumsum(dt + bh * S + s0, A[h], dts, cum, valid, L);
+  const double total = cum[L - 1];
+  for (int j = threadIdx.x; j < L; j += blockDim.x) {
+    wts[j] = expf((float)(total - cum[j])) * dts[j];
+  }
+  if (threadIdx.x == 0) totals[bh * nc + c] = (float)total;
+  __syncthreads();
+  stage_convert<T, T>(xw, xw_lo, LP, x + (bh * S + s0) * P, P, valid, L,
+                      wts);
+  cp_async_wait_all();
+  __syncthreads();
+
+  // local state (P, N) = (x w)^T @ B, both operands read across their rows
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int m0 = (warp % MT) * 16;
+  const int n0 = (warp / MT) * NTW * 8;
+  float acc[NTW][4];
+#pragma unroll
+  for (int j = 0; j < NTW; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  }
+  for (int k0 = 0; k0 < valid; k0 += 16) {     // rows past valid are zeros
+    const typename M::A a = M::load_a_t(xw, LP, m0, k0);
+#pragma unroll
+    for (int j = 0; j < NTW; ++j) {
+      const typename M::B bj = M::load_b_t(bs, LN, n0 + 8 * j, k0);
+      M::mma(acc[j], a, bj);
+      if constexpr (M::kSplit) {
+        M::mma(acc[j], M::load_a_t(xw_lo, LP, m0, k0), bj);
+      }
+    }
+  }
+  float* o = states + (bh * nc + c) * P * N + (size_t)(m0 + (lane >> 2)) * N +
+             n0 + 2 * (lane & 3);
+#pragma unroll
+  for (int j = 0; j < NTW; ++j) {
+    store2(o + 8 * j, acc[j][0], acc[j][1]);
+    store2(o + 8 * j + 8 * N, acc[j][2], acc[j][3]);
+  }
+}
+
+// ------------------------------------------------ pass 2: the scan
+// Each thread owns 4 consecutive state elements of one (lane, head) and
+// walks the chunks: the local state it reads is replaced by the state
+// entering the chunk, and the state after the last chunk is the final one.
+__global__ void __launch_bounds__(kScanThreads)
+ssd_state_scan_kernel(float* __restrict__ states,
+                      const float* __restrict__ totals,
+                      float* __restrict__ final_state, int nc, int PN) {
+  const size_t bh = (size_t)blockIdx.z * gridDim.y + blockIdx.y;
+  const int e = (blockIdx.x * blockDim.x + threadIdx.x) * 4;
+  if (e >= PN) return;
+  float* st = states + bh * nc * PN + e;
+  const float* tot = totals + bh * nc;
+  float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 4
+  for (int c = 0; c < nc; ++c) {
+    float4* p = reinterpret_cast<float4*>(st + (size_t)c * PN);
+    const float4 loc = *p;
+    *p = s;
+    const float d = expf(tot[c]);
+    s = make_float4(s.x * d + loc.x, s.y * d + loc.y, s.z * d + loc.z,
+                    s.w * d + loc.w);
+  }
+  *reinterpret_cast<float4*>(final_state + bh * PN + e) = s;
+}
+
+// ------------------------------------------------ pass 3: outputs
+__host__ __device__ constexpr int slab_rows(int L) {
+  return L < 64 ? L : 64;
+}
+
+// Shared memory: cum [L] float64, dt [L] float32, then in T: C of the slab
+// [R][N + pad], B and x of keys 0..L [L][N + pad] and [L][P + pad], and the
+// incoming state [P][N + pad] (and its lo half in bf16).
+template <typename T, int P, int N, int L>
+__host__ __device__ constexpr size_t output_smem_bytes() {
+  return (size_t)L * 12 +
+         ((size_t)(slab_rows(L) + L + (Mma<T>::kSplit ? 2 : 1) * P) *
+              (N + kPadE) +
+          (size_t)L * (P + kPadE)) * sizeof(T);
+}
+
+// Warp w owns rows i0 = r0 + 16 w .. i0 + 15 of the chunk, whose keys are
+// j < i0 + 16: L / 8 accumulator tiles of 8 keys at most. A block is 2R
+// threads; the bound names 128 threads and one block per SM whatever R is,
+// so that ptxas sizes the 64-thread blocks' registers as the 128-thread
+// ones' (a bound of 64 threads spilled).
+template <typename T, int P, int N, int L>
+__global__ void __launch_bounds__(kTileThreads, 1)
+ssd_output_kernel(const T* __restrict__ x, const float* __restrict__ dt,
+                  const float* __restrict__ A, const T* __restrict__ Bm,
+                  const T* __restrict__ Cm, const float* __restrict__ states,
+                  T* __restrict__ y, int H, int S) {
+  using M = Mma<T>;
+  constexpr int R = slab_rows(L);
+  constexpr int NA = N + kPadE;   // row stride of the C, B and state tiles
+  constexpr int LP = P + kPadE;   // row stride of the x tile
+  constexpr int JT = L / 8;       // key tiles of the chunk
+  constexpr int PT = P / 8;       // output column tiles
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int slabs = L / R;
+  const int c = blockIdx.x / slabs;
+  const int r0 = (blockIdx.x % slabs) * R;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int nc = gridDim.x / slabs;
+  const int J = r0 + R;           // keys that reach the slab
+  const int s0 = c * L;
+  const int valid = min(L, S - s0);
+  double* cum = reinterpret_cast<double*>(smem);
+  float* dts = reinterpret_cast<float*>(cum + L);
+  T* cs = reinterpret_cast<T*>(dts + L);   // [R][NA]
+  T* bs = cs + (size_t)R * NA;             // [L][NA], rows < J used
+  T* xs = bs + (size_t)L * NA;             // [L][LP], rows < J used
+  T* ss = xs + (size_t)L * LP;             // [P][NA]
+  T* ss_lo = M::kSplit ? ss + (size_t)P * NA : nullptr;   // [P][NA]
+
+  const size_t bh = (size_t)b * H + h;
+  const size_t row0 = (size_t)b * S + s0;
+  stage_rows<T>(cs, NA, Cm + row0 * N, r0, N, valid, R);
+  stage_rows<T>(bs, NA, Bm + row0 * N, 0, N, valid, J);
+  stage_rows<T>(xs, LP, x + (bh * S + s0) * P, 0, P, valid, J);
+  if (c > 0) {                    // S_in of chunk 0 is 0
+    stage_convert<T, float>(ss, ss_lo, NA, states + (bh * nc + c) * P * N,
+                            N, P, P, nullptr);
+  }
+  chunk_cumsum(dt + bh * S + s0, A[h], dts, cum, valid, L);
+  cp_async_wait_all();
+  __syncthreads();
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int m0 = 16 * warp;       // the warp's first row in the slab
+  const int i0 = r0 + m0;         // ... and in the chunk
+  const int kend = i0 + 16;       // keys j < kend
+
+  // C @ B^T for the warp's rows and keys j < kend
+  float att[JT][4];
+#pragma unroll
+  for (int nt = 0; nt < JT; ++nt) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) att[nt][e] = 0.f;
+  }
+#pragma unroll 2
+  for (int k0 = 0; k0 < N; k0 += 16) {
+    const typename M::A a = M::load_a(cs, NA, m0, k0);
+#pragma unroll
+    for (int nt = 0; nt < JT; ++nt) {
+      if (nt * 8 < kend) M::mma(att[nt], a, M::load_b(bs, NA, nt * 8, k0));
+    }
+  }
+  // att = (C . B_j) * exp(cum_i - cum_j) * dt_j for j <= i, else 0
+  const int ia = i0 + (lane >> 2);
+  const int ib = ia + 8;
+  const double ca = cum[ia];
+  const double cb = cum[ib];
+#pragma unroll
+  for (int nt = 0; nt < JT; ++nt) {
+    if (nt * 8 < kend) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e < 2 ? ia : ib;
+        const int j = nt * 8 + 2 * (lane & 3) + (e & 1);
+        att[nt][e] = j <= i ? att[nt][e] *
+                                  expf((float)((e < 2 ? ca : cb) - cum[j])) *
+                                  dts[j]
+                            : 0.f;
+      }
+    }
+  }
+
+  // y = att @ x (keys in steps of 16) + exp(cum_i) * (C @ S_in^T)
+  float yo[PT][4];
+#pragma unroll
+  for (int pt = 0; pt < PT; ++pt) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) yo[pt][e] = 0.f;
+  }
+#pragma unroll
+  for (int kk = 0; kk < JT / 2; ++kk) {
+    if (kk * 16 < kend) {
+      const typename M::A a = M::from_acc(att[2 * kk], att[2 * kk + 1]);
+#pragma unroll
+      for (int pt = 0; pt < PT; ++pt) {
+        const typename M::B bx = M::load_b_t(xs, LP, pt * 8, kk * 16);
+        M::mma(yo[pt], a, bx);
+        if constexpr (M::kSplit) {
+          M::mma(yo[pt], M::from_acc_lo(att[2 * kk], att[2 * kk + 1]), bx);
+        }
+      }
+    }
+  }
+  if (c > 0) {
+    float q[PT][4];
+#pragma unroll
+    for (int pt = 0; pt < PT; ++pt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) q[pt][e] = 0.f;
+    }
+#pragma unroll 2
+    for (int k0 = 0; k0 < N; k0 += 16) {
+      const typename M::A a = M::load_a(cs, NA, m0, k0);
+#pragma unroll
+      for (int pt = 0; pt < PT; ++pt) {
+        M::mma(q[pt], a, M::load_b(ss, NA, pt * 8, k0));
+        if constexpr (M::kSplit) {
+          M::mma(q[pt], a, M::load_b(ss_lo, NA, pt * 8, k0));
+        }
+      }
+    }
+    const float ea = expf((float)ca);
+    const float eb = expf((float)cb);
+#pragma unroll
+    for (int pt = 0; pt < PT; ++pt) {
+      yo[pt][0] += ea * q[pt][0];
+      yo[pt][1] += ea * q[pt][1];
+      yo[pt][2] += eb * q[pt][2];
+      yo[pt][3] += eb * q[pt][3];
+    }
+  }
+  T* yc = y + (bh * S + s0) * P + 2 * (lane & 3);
+#pragma unroll
+  for (int pt = 0; pt < PT; ++pt) {
+    if (ia < valid) store2(yc + (size_t)ia * P + pt * 8, yo[pt][0], yo[pt][1]);
+    if (ib < valid) store2(yc + (size_t)ib * P + pt * 8, yo[pt][2], yo[pt][3]);
+  }
+}
+
+// ------------------------------------------------ launch
+// The chunk-state kernel serves both chunk sizes, so its shared-memory limit
+// is raised once, to the larger chunk's need, and recorded per kernel (a
+// record per launcher would let one chunk size lower the limit under the
+// other's record).
+template <typename T, int P, int N>
+static bool raise_state_smem_limit() {
+  static size_t allowed = 0;
+  return raise_smem_limit(ssd_chunk_state_kernel<T, P, N>,
+                          state_smem_bytes<T, P, N>(kMaxChunk), allowed);
+}
+
+// passes: bit 0 chunk states, bit 1 scan, bit 2 outputs (7 for a call; a
+// single bit only for timing one pass).
+template <typename T, int P, int N, int L>
 static int launch_ssd(const void* x, const float* dt, const float* A,
                       const void* Bm, const void* Cm, void* y, float* fs,
-                      int B, int H, int S, int L, cudaStream_t stream) {
-  const size_t smem = ssd_smem_floats<P, N>(L) * sizeof(float);
-  auto kern = ssd_scan_kernel<T, P, N>;
-  static size_t allowed = 0;
-  if (!raise_smem_limit(kern, smem, allowed)) return (int)cudaGetLastError();
-  dim3 grid(H, B);
-  kern<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(x), dt, A, static_cast<const T*>(Bm),
-      static_cast<const T*>(Cm), static_cast<T*>(y), fs, H, S, L);
+                      float* states, float* totals, int B, int H, int S,
+                      int passes, cudaStream_t stream) {
+  const int nc = (S + L - 1) / L;
+  const T* xt = static_cast<const T*>(x);
+  if (nc > 0 && (passes & 1)) {
+    const size_t smem = state_smem_bytes<T, P, N>(L);
+    auto kern = ssd_chunk_state_kernel<T, P, N>;
+    if (!raise_state_smem_limit<T, P, N>()) return (int)cudaGetLastError();
+    kern<<<dim3(nc, H, B), kTileThreads, smem, stream>>>(
+        xt, dt, A, static_cast<const T*>(Bm), states, totals, H, S, L);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (passes & 2) {
+    const int per_block = kScanThreads * 4;
+    auto kern = ssd_state_scan_kernel;
+    kern<<<dim3((P * N + per_block - 1) / per_block, H, B), kScanThreads, 0,
+           stream>>>(states, totals, fs, nc, P * N);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (nc > 0 && (passes & 4)) {
+    const size_t smem = output_smem_bytes<T, P, N, L>();
+    auto kern = ssd_output_kernel<T, P, N, L>;
+    static size_t allowed = 0;
+    if (!raise_smem_limit(kern, smem, allowed)) return (int)cudaGetLastError();
+    kern<<<dim3(nc * (L / slab_rows(L)), H, B), 2 * slab_rows(L), smem,
+           stream>>>(xt, dt, A, static_cast<const T*>(Bm),
+                     static_cast<const T*>(Cm), states, static_cast<T*>(y),
+                     H, S);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -349,24 +754,29 @@ using namespace repro_torch;
 
 // K5. dtype: 0 = float32, 1 = bfloat16 (x, B, C and y); dt, A and the final
 // state are float32. P must be 32 or 64, state_dim 32, 64 or 128, chunk 32
-// or 128. Returns the cudaError_t of the launch (0 on success).
+// or 128. Workspace, float32: states (B, H, ceil(S / chunk), P, state_dim)
+// and totals (B, H, ceil(S / chunk)). passes: 7 for a call (see
+// launch_ssd). Returns the cudaError_t of the launches (0 on success).
 extern "C" int repro_ssd_scan(int dtype, int state_dim, const void* x,
                               const float* dt, const float* A, const void* Bm,
                               const void* Cm, void* y, float* final_state,
-                              int B, int H, int S, int P, int chunk,
+                              float* states, float* totals, int B, int H,
+                              int S, int P, int chunk, int passes,
                               void* stream) {
-  if (chunk != 32 && chunk != 128) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define REPRO_SSD(T, PP, NN)                                                 \
-  if (P == PP && state_dim == NN)                                            \
-  return launch_ssd<T, PP, NN>(x, dt, A, Bm, Cm, y, final_state, B, H, S,    \
-                               chunk, st)
+#define REPRO_SSD(T, PP, NN, LL)                                             \
+  if (P == PP && state_dim == NN && chunk == LL)                             \
+  return launch_ssd<T, PP, NN, LL>(x, dt, A, Bm, Cm, y, final_state, states, \
+                                   totals, B, H, S, passes, st)
+#define REPRO_SSD_N(T, PP, LL)                                               \
+  REPRO_SSD(T, PP, 32, LL); REPRO_SSD(T, PP, 64, LL); REPRO_SSD(T, PP, 128, LL)
 #define REPRO_SSD_ALL(T)                                                     \
-  REPRO_SSD(T, 32, 32); REPRO_SSD(T, 32, 64); REPRO_SSD(T, 32, 128);         \
-  REPRO_SSD(T, 64, 32); REPRO_SSD(T, 64, 64); REPRO_SSD(T, 64, 128)
+  REPRO_SSD_N(T, 32, 32); REPRO_SSD_N(T, 64, 32);                            \
+  REPRO_SSD_N(T, 32, 128); REPRO_SSD_N(T, 64, 128)
   if (dtype == 0) { REPRO_SSD_ALL(float); }
   if (dtype == 1) { REPRO_SSD_ALL(__nv_bfloat16); }
 #undef REPRO_SSD_ALL
+#undef REPRO_SSD_N
 #undef REPRO_SSD
   return (int)cudaErrorInvalidValue;
 }

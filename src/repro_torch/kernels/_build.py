@@ -38,13 +38,13 @@ _SIGNATURES = {
                               _I, _F, _F, _I, _I, _I, _I, _P],
     "repro_decode_attention": [_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                _I, _F, _F, _I, _P],
-    "repro_paged_decode_attention": [_I, _I, _P, _P, _P, _P, _P, _P, _I, _I,
-                                     _I, _I, _I, _I, _F, _F, _I, _P],
+    "repro_paged_decode_attention": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _I,
+                                     _I, _I, _I, _I, _I, _F, _F, _I, _P],
     "repro_paged_decode_attention_int8": [_I, _I, _P, _P, _P, _P, _P, _P, _P,
                                           _P, _I, _I, _I, _I, _I, _I, _F, _F,
                                           _I, _P],
-    "repro_ssd_scan": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                       _P],
+    "repro_ssd_scan": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                       _I, _I, _I, _P],
 }
 
 

@@ -5,10 +5,12 @@ K2 replaces the Pallas TPU kernel ``repro/kernels/decode_attention.py::
 decode_attention`` (body ``_decode_kernel``); K3 replaces
 ``paged_decode_attention`` (body ``_paged_decode_kernel``); K4 replaces
 ``paged_decode_attention_int8`` (body ``_paged_decode_int8_kernel``). All
-three are ``csrc/decode_attention.cu``. K2 splits the KV axis across
-blocks and merges the splits' float32 partials in a second launch (two
-device kernels per call, one count); K3 and K4 share one paged template with
-a float or an int8 tile loader. Its header note says what bounds them.
+three are ``csrc/decode_attention.cu``. K2 and K3 split the KV axis across
+blocks with one kernel (they differ only in where a key row lives: a dense
+slab, or a pool block found through the block table) and merge the splits'
+float32 partials in a second launch (two device kernels per call, one
+count); K4 walks 128-key int8 tiles in one block per (KV head, lane). Its
+header note says what bounds them.
 """
 from __future__ import annotations
 
@@ -20,12 +22,14 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.flash_attention import DTYPE_CODES, check_inputs
 
-PAGED_BLOCK_K = 128    # K3's shared-memory tile: any pool block size works
+PAGED_BLOCK_K = 128    # K4's shared-memory tile: any pool block size works
+SPLIT_KS = (32, 64, 128)   # K3's keys per split; any pool block size works
 
 
 def num_splits(smax: int, block_k: int) -> int:
-    """K2's KV splits: fixed from the cache's Smax, never from kv_len, so a
-    call needs no host sync and captures into a CUDA graph."""
+    """K2's and K3's KV splits: fixed from the cache's extent (Smax, or
+    block_size * max_blocks), never from kv_len, so a call needs no host
+    sync and captures into a CUDA graph."""
     return max(1, -(-smax // block_k))
 
 
@@ -113,19 +117,25 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
                            v_pool: torch.Tensor, block_tables: torch.Tensor,
                            kv_len: torch.Tensor, *,
                            window: Optional[int] = None,
-                           softcap: Optional[float] = None) -> torch.Tensor:
+                           softcap: Optional[float] = None,
+                           block_k: int = 64) -> torch.Tensor:
     """K3. q: (B, Hq, 1, D); pools (num_blocks, Hkv, block_size, D);
     block_tables (B, max_blocks) int32 whose every entry is a valid pool
     index (dead entries point at the null block 0); kv_len (B,) int32.
     CUDA tensors launch the kernel (or raise); CPU tensors take the plain
-    version."""
+    version. ``block_k`` keys per split, one of ``SPLIT_KS``; the float32
+    workspace of the splits' partials, (B, Hq, splits, D + 2) with splits =
+    ceil(block_size * max_blocks / block_k), is allocated here."""
     if q.device.type == "cpu":
         return paged_decode_attention_ref(q, k_pool, v_pool, block_tables,
                                           kv_len, window=window,
                                           softcap=softcap)
     check_inputs("paged_decode_attention", q, k_pool, v_pool)
     _check_common("paged_decode_attention", q, kv_len, window, softcap,
-                  PAGED_BLOCK_K)
+                  block_k)
+    if block_k not in SPLIT_KS:
+        raise ValueError(f"paged_decode_attention: block_k {block_k} not in "
+                         f"{SPLIT_KS}")
     B, Hq, _, D = q.shape
     _, Hkv, bs, Dp = k_pool.shape
     if v_pool.shape != k_pool.shape or Dp != D or Hq % Hkv:
@@ -135,11 +145,14 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
+    max_blocks = block_tables.shape[1]
+    ws = torch.empty((B, Hq, num_splits(bs * max_blocks, block_k), D + 2),
+                     dtype=torch.float32, device=q.device)
     code = _build.library().repro_paged_decode_attention(
         DTYPE_CODES[q.dtype], D, q.data_ptr(), k_pool.data_ptr(),
         v_pool.data_ptr(), block_tables.data_ptr(), kv_len.data_ptr(),
-        out.data_ptr(), B, Hq, Hkv, bs, block_tables.shape[1], window or 0,
-        float(softcap or 0.0), float(D ** -0.5), PAGED_BLOCK_K,
+        ws.data_ptr(), out.data_ptr(), B, Hq, Hkv, bs, max_blocks,
+        window or 0, float(softcap or 0.0), float(D ** -0.5), block_k,
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(code, "paged_decode_attention")
     paged_decode_attention.launches += 1

@@ -3,8 +3,9 @@ plain version.
 
 Replaces the Pallas TPU kernel ``repro/kernels/ssm_scan.py::ssd_scan``
 (body ``_ssd_kernel``). The CUDA source is ``csrc/ssm_scan.cu``; its header
-note says how the TPU grid's sequential chunk axis became a loop inside one
-block per (lane, head), how shared memory is split, and what bounds it.
+note says how the TPU grid's sequential chunk axis became three passes
+(every chunk's local state, a scan of the states over the chunks, every
+chunk's outputs), where the bf16 path rounds, and what bounds it.
 """
 from __future__ import annotations
 
@@ -21,6 +22,10 @@ from repro_torch.kernels.flash_attention import DTYPE_CODES
 HEAD_DIMS = (32, 64)          # P
 STATE_DIMS = (32, 64, 128)    # N
 CHUNKS = (32, 128)            # L; 128 is the default, as on the TPU
+# the kernel's passes (bits of the launcher's mask): chunk states, the scan
+# over chunks, the outputs
+PASSES = {"chunk_states": 1, "scan": 2, "outputs": 4}
+ALL_PASSES = 7
 
 
 def ssd_scan_ref(x, dt, A, Bmat, Cmat, *,
@@ -74,25 +79,63 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     Bmat, Cmat (B, S, N). Returns (y (B, H, S, P) in x.dtype, final state
     (B, H, P, N) float32).
 
-    On a CUDA tensor this launches the Hopper kernel (or raises); a CPU
-    tensor takes the plain version. Any S: the kernel masks the ragged tail.
+    On a CUDA tensor this launches the Hopper kernel (three device kernels,
+    one count) or raises; a CPU tensor takes the plain version. Any S: the
+    kernel masks the ragged tail.
     """
     if x.device.type == "cpu":
         return ssd_scan_ref(x, dt, A, Bmat, Cmat, chunk=chunk)
+    y, state, launched = launch_passes(x, dt, A, Bmat, Cmat, chunk=chunk)
+    if launched:
+        ssd_scan.launches += 1
+    return y, state
+
+
+def _workspace_shapes(x, N, chunk):
+    B, H, S, P = x.shape
+    nc = -(-S // chunk)
+    return (B, H, nc, P, N), (B, H, nc)
+
+
+def workspace(x: torch.Tensor, N: int, chunk: int
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's float32 workspace for x (B, H, S, P): every chunk's
+    state (B, H, chunks, P, N) and its total decay (B, H, chunks)."""
+    return tuple(torch.empty(shape, dtype=torch.float32, device=x.device)
+                 for shape in _workspace_shapes(x, N, chunk))
+
+
+def launch_passes(x, dt, A, Bmat, Cmat, *, chunk: int = 128,
+                  passes: int = ALL_PASSES, ws=None):
+    """Launch the kernel's passes in the ``passes`` mask (bits of
+    ``PASSES``) on CUDA tensors, with a new workspace or ``ws``. Returns
+    (y, final state, launched). ``ssd_scan`` runs all three and counts the
+    call; one pass alone, on a workspace a full call has filled, serves
+    only to time that pass, and counts nothing."""
     _check(x, dt, A, Bmat, Cmat, chunk)
     B, H, S, P = x.shape
     N = Bmat.shape[-1]
     y = torch.empty_like(x)
     state = torch.empty((B, H, P, N), dtype=torch.float32, device=x.device)
+    if not 0 < passes <= ALL_PASSES:
+        raise ValueError(f"ssd_scan: passes {passes} not a mask of {PASSES}")
     if B * H == 0:
-        return y, state
+        return y, state, False
+    if ws is None:
+        ws = workspace(x, N, chunk)
+    elif any(tuple(w.shape) != shape or w.dtype != torch.float32
+             or w.device != x.device or not w.is_contiguous()
+             for w, shape in zip(ws, _workspace_shapes(x, N, chunk))):
+        raise ValueError("ssd_scan: the workspace must be as workspace() "
+                         "makes it")
+    states, totals = ws
     code = _build.library().repro_ssd_scan(
         DTYPE_CODES[x.dtype], N, x.data_ptr(), dt.data_ptr(), A.data_ptr(),
         Bmat.data_ptr(), Cmat.data_ptr(), y.data_ptr(), state.data_ptr(),
-        B, H, S, P, chunk, torch.cuda.current_stream(x.device).cuda_stream)
+        states.data_ptr(), totals.data_ptr(), B, H, S, P, chunk, passes,
+        torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(code, "ssd_scan")
-    ssd_scan.launches += 1
-    return y, state
+    return y, state, True
 
 
 ssd_scan.launches = 0

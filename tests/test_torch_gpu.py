@@ -201,6 +201,93 @@ def test_decode_split_edges_on_card(dtype, D, block_k):
             atol=TOL[dtype], rtol=TOL[dtype])
 
 
+def _paged_inputs(gen, dtype, kv_len, G, Hkv, D, span, max_blocks):
+    """Pools and tables whose live entries are distinct random blocks
+    (never the null block 0) and whose dead entries are 0."""
+    B = len(kv_len)
+    num_blocks = 1 + sum(-(-n // span) for n in kv_len)
+    q = _randn(gen, (B, G * Hkv, 1, D), dtype)
+    kp = _randn(gen, (num_blocks, Hkv, span, D), dtype)
+    vp = _randn(gen, (num_blocks, Hkv, span, D), dtype)
+    perm = torch.randperm(num_blocks - 1, generator=gen, device="cuda") + 1
+    tables = torch.zeros((B, max_blocks), dtype=torch.int32, device="cuda")
+    used = 0
+    for b, n in enumerate(kv_len):
+        nb = -(-n // span)
+        tables[b, :nb] = perm[used:used + nb].to(torch.int32)
+        used += nb
+    kv = torch.tensor(kv_len, dtype=torch.int32, device="cuda")
+    return q, kp, vp, tables, kv
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("span", [16, 32])
+@pytest.mark.parametrize("block_k", [32, 64, 128])
+@pytest.mark.parametrize("G,D", [(1, 128), (4, 64)])
+def test_paged_decode_split_edges_on_card(dtype, span, block_k, G, D):
+    """K3 v2 (split-KV through the block tables) at kv_len 0, on both sides
+    of a split edge and at the whole table, with a window of 71 that cuts
+    splits and a softcap of 20, against its plain version on rows with a
+    valid key; the kv_len 0 lane is 0."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    max_blocks = -(-(2 * block_k + 9) // span)
+    kv_len = [0, 1, block_k - 1, block_k, block_k + 1, span * max_blocks]
+    q, kp, vp, tables, kv = _paged_inputs(gen, dtype, kv_len, G, 2, D, span,
+                                          max_blocks)
+    rows = kv > 0
+    for kw in ({}, {"window": 71}, {"softcap": 20.0}):
+        got = DA.paged_decode_attention(q, kp, vp, tables, kv,
+                                        block_k=block_k, **kw)
+        want = DA.paged_decode_attention_ref(q, kp, vp, tables, kv, **kw)
+        torch.testing.assert_close(got[rows].float(), want[rows].float(),
+                                   atol=TOL[dtype], rtol=TOL[dtype])
+        assert torch.count_nonzero(got[~rows]) == 0
+
+
+@pytest.mark.gpu
+def test_paged_decode_captures_into_a_cuda_graph():
+    """A K3 call (split and combine, a workspace from torch.empty) needs no
+    host sync: its splits come from the table's width, so it captures into
+    a CUDA graph and a replay reads the new kv_len. One count per call."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    q, kp, vp, tables, kv = _paged_inputs(gen, torch.bfloat16,
+                                          [40, 130, 300, 528], 4, 8, 128, 16,
+                                          34)
+    before = DA.paged_decode_attention.launches
+    eager = DA.paged_decode_attention(q, kp, vp, tables, kv)
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out = DA.paged_decode_attention(q, kp, vp, tables, kv)
+    g.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
+    kv -= 7
+    g.replay()
+    torch.testing.assert_close(
+        out.float(),
+        DA.paged_decode_attention_ref(q, kp, vp, tables, kv).float(),
+        atol=2e-2, rtol=2e-2)
+    assert DA.paged_decode_attention.launches == before + 2
+
+
+@pytest.mark.gpu
+def test_paged_decode_refuses_a_split_it_does_not_take():
+    _need_card()
+    q = torch.zeros((1, 2, 1, 64), device="cuda")
+    pool = torch.zeros((4, 1, 16, 64), device="cuda")
+    tables = torch.ones((1, 2), dtype=torch.int32, device="cuda")
+    kv = torch.full((1,), 20, dtype=torch.int32, device="cuda")
+    before = DA.paged_decode_attention.launches
+    for bk in (16, 48, 96, 256):
+        with pytest.raises(ValueError, match="block_k"):
+            DA.paged_decode_attention(q, pool, pool, tables, kv, block_k=bk)
+    assert DA.paged_decode_attention.launches == before
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_many_query_heads_per_kv_head_on_card(dtype):
@@ -253,12 +340,28 @@ def test_decode_captures_into_a_cuda_graph_and_counts_calls():
 
 @pytest.mark.gpu
 def test_launch_counters_count_kernel_launches():
+    """One count per call of K1, K3 (two device kernels) and K5 (three);
+    the plain versions count nothing."""
     _need_card()
     q = torch.zeros((1, 2, 8, 64), device="cuda")
     before = FA.flash_attention.launches
     FA.flash_attention(q, q, q)
     FA.flash_attention_ref(q, q, q)
     assert FA.flash_attention.launches == before + 1
+    pool = torch.zeros((4, 1, 16, 64), device="cuda")
+    tables = torch.ones((1, 2), dtype=torch.int32, device="cuda")
+    kv = torch.full((1,), 20, dtype=torch.int32, device="cuda")
+    q1 = q[:, :, :1].contiguous()
+    before = DA.paged_decode_attention.launches
+    DA.paged_decode_attention(q1, pool, pool, tables, kv)
+    DA.paged_decode_attention_ref(q1, pool, pool, tables, kv)
+    assert DA.paged_decode_attention.launches == before + 1
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    inp = _ssd_inputs(gen, 1, 2, 40, 32, torch.bfloat16, 32)
+    before = SS.ssd_scan.launches
+    SS.ssd_scan(*inp, chunk=32)
+    SS.ssd_scan_ref(*inp, chunk=32)
+    assert SS.ssd_scan.launches == before + 1
 
 
 # ------------------------------------------------------------------ K5
@@ -300,6 +403,57 @@ def test_ssd_scan_kernel_matches_plain_on_card(dtype, H, P, N, S, chunk):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("P", SS.HEAD_DIMS)
+@pytest.mark.parametrize("N", SS.STATE_DIMS)
+@pytest.mark.parametrize("chunk", SS.CHUNKS)
+def test_ssd_scan_every_instantiation_on_card(dtype, P, N, chunk):
+    """K5 v2 (three passes) at every (dtype, P, N, chunk) it is built for,
+    B = 2 and a ragged S of three chunks, against the chunked plain version
+    and the sequential oracle, y and the final state."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    S = 2 * chunk + chunk // 3 + 1
+    inp = _ssd_inputs(gen, 2, 3, S, N, dtype, P)
+    tol = SSD_TOL[dtype]
+    y, fs = SS.ssd_scan(*inp, chunk=chunk)
+    torch.cuda.synchronize()
+    for want_y, want_fs in (SS.ssd_scan_ref(*inp, chunk=chunk),
+                            ref.ssd_scan(*inp)):
+        torch.testing.assert_close(y.float(), want_y.float(), atol=tol,
+                                   rtol=tol)
+        torch.testing.assert_close(fs, want_fs, atol=tol, rtol=tol)
+
+
+@pytest.mark.gpu
+def test_ssd_scan_captures_into_a_cuda_graph():
+    """A K5 call (three device kernels, a workspace from torch.empty) needs
+    no host sync: it captures into a CUDA graph, and a replay on new inputs
+    gives their scan. One count per call."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    inp = _ssd_inputs(gen, 1, 24, 300, 128, torch.bfloat16, 64)
+    before = SS.ssd_scan.launches
+    eager = SS.ssd_scan(*inp)
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        y, fs = SS.ssd_scan(*inp)
+    g.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(y, eager[0]) and torch.equal(fs, eager[1])
+    for t, new in zip(inp, _ssd_inputs(gen, 1, 24, 300, 128, torch.bfloat16,
+                                       64)):
+        t.copy_(new)
+    g.replay()
+    want_y, want_fs = SS.ssd_scan_ref(*inp)
+    tol = SSD_TOL[torch.bfloat16]
+    torch.testing.assert_close(y.float(), want_y.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(fs, want_fs, atol=tol, rtol=tol)
+    assert SS.ssd_scan.launches == before + 2
+
+
+@pytest.mark.gpu
 def test_ssd_scan_wrapper_refuses_and_counts():
     _need_card()
     gen = torch.Generator(device="cuda").manual_seed(3)
@@ -316,6 +470,11 @@ def test_ssd_scan_wrapper_refuses_and_counts():
         SS.ssd_scan(x[..., :16].contiguous(), dt, A, Bm, Cm)
     with pytest.raises(ValueError, match="chunk"):
         SS.ssd_scan(x, dt, A, Bm, Cm, chunk=100)
+    with pytest.raises(ValueError, match="passes"):
+        SS.launch_passes(x, dt, A, Bm, Cm, passes=8)
+    with pytest.raises(ValueError, match="workspace"):
+        SS.launch_passes(x, dt, A, Bm, Cm, chunk=32,
+                         ws=SS.workspace(x, 64, 128))
     before = SS.ssd_scan.launches
     SS.ssd_scan(x, dt, A, Bm, Cm)
     SS.ssd_scan_ref(x, dt, A, Bm, Cm)

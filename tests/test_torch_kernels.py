@@ -291,4 +291,6 @@ def test_ssm_scan_source_is_built_lazily():
     text = (_build.CSRC_DIR / "ssm_scan.cu").read_text()
     assert "repro/kernels/ssm_scan.py" in text and "_ssd_kernel" in text
     assert 'extern "C" int repro_ssd_scan(' in text
-    assert len(_build._SIGNATURES["repro_ssd_scan"]) == 15
+    # inputs, outputs, the workspace (states, totals), shapes, chunk, the
+    # passes mask and the stream
+    assert len(_build._SIGNATURES["repro_ssd_scan"]) == 18

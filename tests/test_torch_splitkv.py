@@ -10,6 +10,14 @@ against the reference before any card sees it:
   held against ``repro.kernels.ref.decode_attention`` and the Pallas
   ``decode_attention`` (interpret mode) in float32 at 2e-5, at kv_len on
   either side of a split edge, a window that cuts splits, and G = 1 and 4.
+* K3 v2 runs the same split and combine over a paged cache: split s holds
+  positions [s·block_k, (s + 1)·block_k) of the lane's logical cache, each
+  read from pool block ``block_tables[b, pos // span]`` at row
+  ``pos % span``, and the splits are fixed from span · max_blocks. Its
+  mirror is held against ``repro.kernels.ref.paged_decode_attention`` and
+  the Pallas ``paged_decode_attention`` (interpret mode) in float32 at
+  2e-5, at kv_len on either side of a split edge, a window that cuts
+  splits, a lane with kv_len 0, span 16 and 32, and G = 1 and 4.
 * K1 v3 computes S = Q·Kᵀ from bf16 values with float32 accumulation, scales
   S (not Q) by D^-0.5 in float32, and rounds P to bf16 before P·V while the
   row sums l use the unrounded P. The mirror below walks key tiles with that
@@ -19,6 +27,8 @@ against the reference before any card sees it:
 These mirrors are models of the kernels' algorithms and live here, not in
 the package.
 """
+import functools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -26,6 +36,8 @@ import torch
 
 from repro.kernels import ref as jref
 from repro.kernels.decode_attention import decode_attention as pallas_decode
+from repro.kernels.decode_attention import \
+    paged_decode_attention as pallas_paged
 
 NEG_INF = -1e30     # the kernels' and the reference's mask value
 F32_TOL = 2e-5
@@ -38,13 +50,33 @@ def splitkv_decode(q, k, v, kv_len, *, block_k, window=None, softcap=None):
 
     q (B, Hq, 1, D), caches (B, Hkv, Smax, D), kv_len (B,) int. Returns
     (out (B, Hq, 1, D) float32, partials (B, Hq, splits, D + 2))."""
+    return _splitkv(q, lambda pos: (k[:, :, pos], v[:, :, pos]), k.shape[2],
+                    kv_len, block_k=block_k, window=window, softcap=softcap)
+
+
+def paged_splitkv_decode(q, k_pool, v_pool, block_tables, kv_len, *,
+                         block_k, window=None, softcap=None):
+    """K3 v2's arithmetic: K2 v3's over a paged cache. Pools (num_blocks,
+    Hkv, span, D); key position pos of lane b is row pos % span of pool
+    block block_tables[b, pos // span]; the splits cover span·max_blocks."""
+    span = k_pool.shape[2]
+    tables = torch.as_tensor(block_tables).long()
+
+    def rows(pos):
+        blk = tables[:, pos // span]                          # (B, n)
+        off = pos % span
+        return (k_pool[blk, :, off].permute(0, 2, 1, 3),
+                v_pool[blk, :, off].permute(0, 2, 1, 3))
+    return _splitkv(q, rows, span * tables.shape[1], kv_len,
+                    block_k=block_k, window=window, softcap=softcap)
+
+
+def _splitkv(q, rows, Smax, kv_len, *, block_k, window, softcap):
+    """The split and the combine; rows(pos) gives K and V (B, Hkv, n, D) of
+    the key positions pos."""
     B, Hq, _, D = q.shape
-    _, Hkv, Smax, _ = k.shape
-    G = Hq // Hkv
     splits = max(1, -(-Smax // block_k))
     qs = q[:, :, 0].float() * D ** -0.5                       # (B, Hq, D)
-    kf = k.float().repeat_interleave(G, dim=1)
-    vf = v.float().repeat_interleave(G, dim=1)
     kvl = torch.as_tensor(kv_len).long()
     k_end = torch.clamp(kvl, max=Smax)
     k_lo = torch.clamp(kvl - window, min=0) if window else torch.zeros_like(kvl)
@@ -55,7 +87,11 @@ def splitkv_decode(q, k, v, kv_len, *, block_k, window=None, softcap=None):
         pos = torch.arange(s * block_k, min(Smax, s * block_k + block_k))
         ok = (pos[None, :] >= s0[:, None]) & (pos[None, :] < s1[:, None])
         ok = ok[:, None, :]                                   # (B, 1, n)
-        x = torch.einsum("bhd,bhnd->bhn", qs, kf[:, :, pos])
+        kp, vp = rows(pos)
+        G = Hq // kp.shape[1]
+        kf = kp.float().repeat_interleave(G, dim=1)
+        vf = vp.float().repeat_interleave(G, dim=1)
+        x = torch.einsum("bhd,bhnd->bhn", qs, kf)
         if softcap is not None:
             x = softcap * torch.tanh(x / softcap)
         x = torch.where(ok, x, torch.full_like(x, NEG_INF))
@@ -63,7 +99,7 @@ def splitkv_decode(q, k, v, kv_len, *, block_k, window=None, softcap=None):
         p = torch.where(ok, torch.exp(x - m[..., None]), torch.zeros_like(x))
         l = p.sum(-1)
         live = (s0 < s1)[:, None].expand(B, Hq)
-        parts[:, :, s, :D] = torch.einsum("bhn,bhnd->bhd", p, vf[:, :, pos])
+        parts[:, :, s, :D] = torch.einsum("bhn,bhnd->bhd", p, vf)
         parts[:, :, s, D] = torch.where(live, m, torch.full_like(m, NEG_INF))
         parts[:, :, s, D + 1] = torch.where(live, l, torch.zeros_like(l))
     m, l = parts[..., D], parts[..., D + 1]
@@ -129,6 +165,58 @@ def test_splitkv_mirror_softcap_and_dead_splits():
                                  window=window, softcap=20.0)
     np.testing.assert_allclose(got.numpy()[1:], np.asarray(want)[1:],
                                atol=F32_TOL, rtol=F32_TOL)
+
+
+# ------------------------------------------------------------------ K3 v2
+@functools.lru_cache(maxsize=None)
+def _paged_case(span, G, window):
+    """Pools, tables and the JAX package's answers (reference and Pallas in
+    interpret mode) for lanes of kv_len 0, then either side of every split
+    edge of block_k 32, 64 and 128, then the whole table. Each lane's live
+    blocks are distinct random pool blocks; dead entries are the null
+    block 0."""
+    Hkv, D = 2, 64
+    kv_len = np.asarray([0, 1, 31, 32, 33, 63, 64, 65, 127, 128, 129, 0],
+                        np.int32)
+    max_blocks = -(-(2 * 128 + 9) // span)
+    kv_len[-1] = span * max_blocks
+    B = len(kv_len)
+    rng = np.random.default_rng(50 + span + G)
+    num_blocks = 1 + int(sum(-(-n // span) for n in kv_len))
+    q = rng.normal(size=(B, G * Hkv, 1, D)).astype(np.float32)
+    kp, vp = (rng.normal(size=(num_blocks, Hkv, span, D)).astype(np.float32)
+              for _ in range(2))
+    tables = np.zeros((B, max_blocks), np.int32)
+    perm = rng.permutation(num_blocks - 1) + 1
+    used = 0
+    for b, n in enumerate(kv_len):
+        nb = -(-int(n) // span)
+        tables[b, :nb] = perm[used:used + nb]
+        used += nb
+    kw = {} if window is None else {"window": window}
+    j = [jnp.asarray(a) for a in (q, kp, vp, tables, kv_len)]
+    wants = [jref.paged_decode_attention(*j[:4], kv_len=j[4], **kw),
+             pallas_paged(*j, interpret=True, **kw)]
+    return (q, kp, vp, tables, kv_len), [np.asarray(w) for w in wants]
+
+
+@pytest.mark.parametrize("block_k", [32, 64, 128])
+@pytest.mark.parametrize("span", [16, 32])
+@pytest.mark.parametrize("G", [1, 4])
+@pytest.mark.parametrize("window", [None, 71])
+def test_paged_splitkv_mirror_matches_jax_and_pallas(block_k, span, G,
+                                                     window):
+    (q, kp, vp, tables, kv_len), wants = _paged_case(span, G, window)
+    got, parts = paged_splitkv_decode(
+        torch.from_numpy(q), torch.from_numpy(kp), torch.from_numpy(vp),
+        tables, kv_len, block_k=block_k, window=window)
+    assert parts.shape[2] == -(-span * tables.shape[1] // block_k)
+    dead = kv_len == 0
+    assert torch.count_nonzero(got[dead]) == 0
+    assert torch.count_nonzero(parts[dead][..., -1]) == 0     # l = 0
+    for want in wants:
+        np.testing.assert_allclose(got.numpy()[~dead], want[~dead],
+                                   atol=F32_TOL, rtol=F32_TOL)
 
 
 # ------------------------------------------------------------------ K1 v3
