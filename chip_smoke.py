@@ -8,9 +8,11 @@ Phases, each printing its own lines; any failure exits non-zero:
   1. device  — card name, count, and nvidia-smi's name and power limit;
   2. build   — the Hopper kernels of src/repro_torch/csrc, built with nvcc
                (build seconds and -Xptxas -v output, and a line per K1 v3,
-               K2 v3 / K3 v2 (split and combine) and K5 v2 (three passes)
-               kernel with its registers, shared memory and spills; a spill
-               in K1 v3 or in a bf16 K5 v2 kernel fails);
+               K2 v3 / K3 v2 / K4 v2 (split and combine; the int8 split
+               instantiations labelled K4) and K5 v2 (three passes) kernel
+               with its registers, shared memory and spills; a spill in K1
+               v3, in a bf16 K5 v2 kernel or in a four-row bf16 K4 split
+               kernel (the int8 serving paths', D 64 and 128) fails);
   3. kernels — K1 flash prefill, K2 dense decode and K3 paged decode held
                against their plain versions at mistral-7b's attention shapes,
                and K1 and K2 at zamba2-1.2b's shared block's (32 heads, no
@@ -30,14 +32,17 @@ Phases, each printing its own lines; any failure exits non-zero:
                (chunk 128, S = 512 and a ragged 300) and at their reduced
                shapes (P = N = 32, chunk 32), f32 2e-5, bf16 5e-2, y and the
                final state, and captured into a CUDA graph; then
-               K4, the int8 paged decode, against its plain version (the
-               scale-folded read) at mistral-7b's serving shape and a
-               reduced D = 64 one (f32 2e-5, bf16 2e-2) and against the
-               gather oracle (f32 3e-5); then each timed at each serving
+               K4 (v2, K3's split-KV over int8 rows), the int8 paged
+               decode, against its plain version (the scale-folded read) at
+               mistral-7b's serving shape and a reduced D = 64 one (f32
+               2e-5, bf16 2e-2) and against the gather oracle (f32 3e-5),
+               at kv_len 0 and on both sides of a split edge for block_k
+               32/64/128, G = 4 and 1, a window of 71 and a softcap, and
+               captured into a CUDA graph; then each timed at each serving
                path's shapes beside the plain version, one PyTorch library
                call where one computes the same function, and the card's
-               bound (K4 also beside the gather composition; K1 by tile, K2
-               and K3 by block_k, K5 by pass);
+               bound (K4 also beside the gather composition; K1 by tile,
+               K2, K3 and K4 by block_k, K5 by pass);
   3c. tune   — the port's autotuner on the card (backend "cuda") over its
                default shapes and the int8 serving bucket b4c1024; the cache
                is written under build/ and not installed;
@@ -142,15 +147,28 @@ def phase_build():
         f"build_seconds={info.seconds:.2f}")
     if info.log:
         say(info.log.rstrip())
-    spills = []
+    spills, int8 = [], []
     for kern, regs, smem, spill in _ptxas_report(info.log):
-        say(f"  ptxas {kern}: {regs} registers, {smem} bytes smem, "
+        k4 = _int8_split(kern)
+        label = f"K4 {k4[0]} D={k4[1]} R={k4[2]} " if k4 else ""
+        say(f"  ptxas {label}{kern}: {regs} registers, {smem} bytes smem, "
             f"spill stores/loads {spill} bytes")
+        if k4:
+            int8.append(k4)
         if spill != "0/0" and ("flash_fwd_wgmma" in kern or (
-                "ssd_" in kern and "__nv_bfloat16" in kern)):
+                "ssd_" in kern and "__nv_bfloat16" in kern) or (
+                k4 and k4[0] == "bf16" and k4[2] == 4)):
             spills.append(kern)
+    # K4's split kernel: q float32 or bf16 x D 64 or 128 x R 1 or 4 (a
+    # library found on disk was built by an earlier run: no ptxas output)
+    if info.built and len(int8) != 8:
+        fail(f"ptxas lists {len(int8)} int8 split instantiations, not 8")
+    if not info.built:
+        say("  ptxas: library found on disk, not rebuilt; no compiler "
+            "report in this run")
     if spills:
-        fail(f"ptxas reports spills in K1 v3 or bf16 K5 v2: {spills}")
+        fail(f"ptxas reports spills in K1 v3, bf16 K5 v2 or a four-row bf16 "
+             f"K4 split kernel: {spills}")
 
 
 REPORTED_KERNELS = ("flash_fwd_wgmma", "decode_split_kernel",
@@ -158,10 +176,22 @@ REPORTED_KERNELS = ("flash_fwd_wgmma", "decode_split_kernel",
                     "ssd_state_scan_kernel", "ssd_output_kernel")
 
 
+def _int8_split(kern):
+    """(q's type, D, R) of an int8 instantiation of decode_split_kernel
+    <T, int8_t, D, R, PAGED> (K4) from its mangled name, else None."""
+    import re
+    m = re.search(r"decode_split_kernelI(f|13__nv_bfloat16)aLi(\d+)ELi(\d+)E",
+                  kern)
+    if m is None:
+        return None
+    return ("f32" if m.group(1) == "f" else "bf16", int(m.group(2)),
+            int(m.group(3)))
+
+
 def _ptxas_report(log):
     """(kernel, registers, static smem bytes, "stores/loads" spill bytes) of
-    every K1 v3, K2 v3 / K3 v2 and K5 v2 instantiation in nvcc's -Xptxas -v
-    output."""
+    every K1 v3, K2 v3 / K3 v2 / K4 v2 and K5 v2 instantiation in nvcc's
+    -Xptxas -v output."""
     import re
     out, name, spill = [], None, "?"
     for line in log.splitlines():
@@ -364,7 +394,7 @@ def check_decode(torch, gen):
 
 
 def _check_split_graph(torch, label, fn, ref_fn, args, kvl, new_kv):
-    """K2 or K3 (split and combine, one call) captured into a CUDA graph:
+    """K2, K3 or K4 (split and combine, one call) captured into a CUDA graph:
     replays equal the eager call, kv_len is read on the device at replay
     (set to new_kv), and the count moves by one per call."""
     before = fn.launches
@@ -547,6 +577,44 @@ def check_int8(torch, gen):
             fail(f"K4 paged_decode_attention_int8 disagrees with its plain "
                  f"version or the gather oracle: {c}")
         worst = max(worst, err)
+    # v2's split edges: kv_len 0 and on both sides of a split of block_k
+    # keys, G = 4 (mistral-7b) and 1, through pool blocks of 16
+    for dt in (torch.float32, torch.bfloat16):
+        for bk in (32, 64, 128):
+            for hq, hkv, d in ((HQ, HKV, D), (4, 4, 64)):
+                edges = [0, 1, bk - 1, bk, bk + 1, 2 * bk + 9]
+                inp = _int8_inputs(torch, gen, dt, 16, d, edges,
+                                   1 + sum(-(-n // 16) for n in edges),
+                                   -(-edges[-1] // 16), hq, hkv)
+                rows = (inp[6] > 0)[:, None, None].expand(len(edges), hq, 1)
+                for kw in ({}, {"window": 71}, {"softcap": 20.0}):
+                    got = DA.paged_decode_attention_int8(*inp, block_k=bk,
+                                                         **kw)
+                    want = DA.paged_decode_attention_int8_ref(*inp, **kw)
+                    torch.cuda.synchronize()
+                    err, ok = _err_on_valid(torch, got, want, rows,
+                                            TOL[str(dt)[6:]])
+                    ok = ok and torch.count_nonzero(got[~rows]).item() == 0
+                    line = (f"  K4 edges  {str(dt)[6:]:8s} Hq={hq} Hkv={hkv} "
+                            f"D={d:3d} bs=16 block_k={bk:3d} kv_len={edges} "
+                            f"{kw}: max_abs_err={err:.3e}")
+                    if dt == torch.float32:
+                        oracle = ref.paged_decode_attention_quant(
+                            *inp[:6], kv_len=inp[6], **kw)
+                        g_err, g_ok = _err_on_valid(torch, got, oracle, rows,
+                                                    GATHER_TOL)
+                        line += f" vs_gather={g_err:.3e}"
+                        ok = ok and g_ok
+                    say(f"{line} {'ok' if ok else 'MISMATCH'}")
+                    if not ok:
+                        fail(f"K4 split edges disagree (or a lane with no key "
+                             f"is not 0): {dt} block_k={bk} Hq={hq} {kw}")
+                    worst = max(worst, err)
+    inp = _int8_inputs(torch, gen, torch.bfloat16, 16, D, SERVE_KV_LEN, 1024,
+                       mb)
+    _check_split_graph(torch, "K4", DA.paged_decode_attention_int8,
+                       DA.paged_decode_attention_int8_ref, inp[:6], inp[6],
+                       [n - 7 for n in SERVE_KV_LEN])
     return worst
 
 
@@ -782,6 +850,8 @@ def time_kernels(torch, gen):
             *inp, window=4096, impl="gather")),
         library_ms=None,
         bound_ms=b_ms, bound_by=b_by,
+        tiles=_split_tiles(torch, DA.paged_decode_attention_int8, *inp,
+                           window=4096),
         shape=f"B=4 Hq={HQ} Hkv={HKV} pool=1024x16 int8 kv_len={kv_len} "
               f"D={D} q bf16")
 
@@ -838,7 +908,7 @@ def _flash_tiles(torch, FA, q, k, v, kw):
 
 
 def _split_tiles(torch, fn, *args, window):
-    """K2 or K3 at each split size block_k."""
+    """K2, K3 or K4 at each split size block_k."""
     return {f"block_k={bk}": time_ms(torch, lambda: fn(
         *args, window=window, block_k=bk)) for bk in (32, 64, 128)}
 
@@ -1022,6 +1092,22 @@ def _dense_and_paged_parity(torch, label, eng, prompts):
                             logits["auto"], logits["ref"])
         worst = max(worst, err)
         seen.append(logits["auto"])
+    if "kp_scale" in caches["auto"]:
+        # the live rows only (positions below each lane's pos): rows past
+        # it, such as a padded chunk's, are never read
+        c = caches["auto"]
+        blk, off = [], []
+        for lane, n in enumerate(c["pos"].tolist()):
+            p = torch.arange(n, device="cuda")
+            blk.append(c["block_tables"][lane, p // bs].long())
+            off.append(p % bs)
+        blk, off = torch.cat(blk), torch.cat(off)
+        d = torch.cat([(caches["auto"][n][:, blk, :, off].int()
+                        - caches["ref"][n][:, blk, :, off].int())
+                       .abs().flatten() for n in ("kp", "vp")])
+        say(f"  {label}paged int8 K/V pools, live rows: "
+            f"{int((d > 0).sum())} of {d.numel()} entries differ between "
+            f"the paths, by at most {int(d.max())}")
 
     tokens = _batcher_parity(f"{label}paged batcher", eng,
                              lambda e: PagedContinuousBatcher(

@@ -1,9 +1,8 @@
-// Shared device code of the CUDA-core tile kernels (K1's float32 flash
-// prefill, v2, and K4's int8 paged decode): type conversion, warp
-// reductions, the K/V tile loaders (float or bf16 for K1, int8 with per-row
-// scales for K4) and the online-softmax update of a group of query rows
-// against one tile. K1's bf16 kernel (v3, wgmma), K2 and K3 (split-KV) and
-// K5 (the SSD scan) use only its constants and small helpers (conversion,
+// Shared device code of the attention kernels. K1's float32 flash prefill
+// (v2) is the one CUDA-core tile kernel left: it alone uses the shared-memory
+// tile (Smem, init_rows, load_tile, attend_tile, write_row). K1's bf16
+// kernel (v3, wgmma), K2, K3 and K4 (split-KV, decode_attention.cu) and K5
+// (the SSD scan) use only its constants and small helpers (conversion,
 // 16-byte loads, the shared-memory limit).
 //
 // Layout in shared memory (all float32, whatever the input type):
@@ -187,67 +186,6 @@ __device__ void load_tile(const Smem<D>& s, const T* __restrict__ k,
         for (int i = 0; i < V; i += 4) {
           *reinterpret_cast<float4*>(s.vs + (size_t)j * D + d0 + i) =
               make_float4(vf[u][i], vf[u][i + 1], vf[u][i + 2], vf[u][i + 3]);
-        }
-      }
-    }
-  }
-}
-
-// The same tile from int8 K/V with one float32 scale per key row (K4): each
-// 16-byte load brings 16 int8 values, kept raw in registers while the loads
-// are in flight, then written to shared memory as int8 * scale in float32,
-// so attend_tile reads the tile as it reads a float one and the dequantized
-// pool never exists in device memory. `ptr(kpos)` is the element offset of
-// key row kpos in k8 and v8; its scale is at ptr(kpos) / D in ks and vs.
-template <int D, typename RowPtr>
-__device__ void load_tile_int8(const Smem<D>& s, const int8_t* __restrict__ k8,
-                               const int8_t* __restrict__ v8,
-                               const float* __restrict__ ks,
-                               const float* __restrict__ vs, int k0, int bk,
-                               int limit, RowPtr ptr) {
-  constexpr int V = 16;                 // int8 values per 16-byte vector
-  constexpr int CPR = D / V;            // 16-byte chunks per key row
-  const int ld = bk + 1;
-  const int n = bk * CPR;
-  const int step = blockDim.x;
-  for (int base = threadIdx.x; base < n; base += kInFlight * step) {
-    uint4 kr[kInFlight], vr[kInFlight];
-    float ksc[kInFlight], vsc[kInFlight];
-#pragma unroll
-    for (int u = 0; u < kInFlight; ++u) {
-      const int c = base + u * step;
-      const int kpos = k0 + c / CPR;
-      if (c < n && kpos < limit) {
-        const size_t row = ptr(kpos);
-        const size_t off = row + (size_t)(c % CPR) * V;
-        kr[u] = *reinterpret_cast<const uint4*>(k8 + off);
-        vr[u] = *reinterpret_cast<const uint4*>(v8 + off);
-        ksc[u] = ks[row / D];
-        vsc[u] = vs[row / D];
-      } else {
-        kr[u] = vr[u] = make_uint4(0u, 0u, 0u, 0u);
-        ksc[u] = vsc[u] = 0.f;
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < kInFlight; ++u) {
-      const int c = base + u * step;
-      if (c < n) {
-        const int j = c / CPR;
-        const int d0 = (c % CPR) * V;
-        const int8_t* kb = reinterpret_cast<const int8_t*>(&kr[u]);
-        const int8_t* vb = reinterpret_cast<const int8_t*>(&vr[u]);
-#pragma unroll
-        for (int i = 0; i < V; ++i) {
-          s.kt[(d0 + i) * ld + j] = static_cast<float>(kb[i]) * ksc[u];
-        }
-#pragma unroll
-        for (int i = 0; i < V; i += 4) {
-          *reinterpret_cast<float4*>(s.vs + (size_t)j * D + d0 + i) =
-              make_float4(static_cast<float>(vb[i]) * vsc[u],
-                          static_cast<float>(vb[i + 1]) * vsc[u],
-                          static_cast<float>(vb[i + 2]) * vsc[u],
-                          static_cast<float>(vb[i + 3]) * vsc[u]);
         }
       }
     }

@@ -10,10 +10,7 @@
 // kv_len masks.
 // K4 replaces paged_decode_attention_int8 (body _paged_decode_int8_kernel):
 // K3 over int8 pools with one float32 scale per key row in scale pools
-// (num_blocks, Hkv, block_size, 1); out = softmax(q.(k*ks)).(v*vs). Its
-// tile loader (load_tile_int8) reads 16 int8 values per 16-byte load and
-// writes int8 * scale as float32 into a shared float32 tile, so the
-// dequantized pool never exists in device memory.
+// (num_blocks, Hkv, block_size, 1); out = softmax(q.(k*ks)).(v*vs).
 //
 // Bound on this card: G·2·kv_len·D multiply-adds against kv_len·2·D
 // elements read, about G/2 operations per byte in bf16, so all three are
@@ -22,7 +19,7 @@
 // kernel reaches the card's memory rate only when most of the 132 SMs issue
 // loads at once.
 //
-// K2 (v3) and K3 (v2), split-KV: the TPU kernels walk the cache in order,
+// Split-KV, for all three: the TPU kernels walk the cache in order,
 // carrying the online softmax (m, l, acc) in VMEM across grid steps. Here the
 // KV axis is split across blocks instead: grid (splits, Hkv, B), splits =
 // ceil(limit / block_k) fixed on the host from the cache's extent (Smax, or
@@ -30,118 +27,62 @@
 // sync, so the launch captures into a CUDA graph), each block owning block_k
 // keys of one (lane, KV head) and all G = Hq / Hkv query heads that share it,
 // as the TPU kernels pack them into the rows of one matmul. One kernel,
-// decode_split_kernel, serves both caches; they differ only in where key
+// decode_split_kernel, serves the three caches. They differ in where key
 // row kpos lives: row kpos of the lane's (B, Hkv, Smax, D) slab, or row
 // kpos % span of pool block block_tables[b, kpos / span] (span = the pools'
 // block_size; a block reads its own table entries, as there is no scalar
 // prefetch on this card, and dead entries point at the null block 0, which
-// kv_len masks). A block reads its own kv_len; one whose keys lie wholly past
+// kv_len masks); and in what a row holds: float or bf16 values, or int8
+// values with the row's float32 scale at row index row(kpos) / D of the
+// scale pools. A block reads its own kv_len; one whose keys lie wholly past
 // kv_len or left of the window writes l = 0 and returns. Inside a block the
-// warps split the keys: each warp reads its keys' K and V rows once with
-// 16-byte loads, several in flight, scores them against the query rows
-// (float32 in registers, one row at a time when G = 1, else four) and keeps
+// warps split the keys: each lane reads its slice of a key's K and V rows
+// once, with one vector load each (16 bytes of float or bf16, 8 bytes of
+// int8, so an int8 lane holds as many values as a bf16 one), several keys in
+// flight, and converts them to float32 in registers; an int8 row's two
+// scales are 4-byte loads that the row's lanes share (a broadcast) and are
+// folded as in the plain version: s = (q.k8)·ks after the lanes' reduction,
+// then the softcap and the mask, and V accumulates p·vs·v8, so no
+// dequantized row is ever stored. Each warp scores its keys against the
+// query rows (float32, one row at a time when G = 1, else four) and keeps
 // its own (m, l, acc); there is no shared K/V tile and no __syncthreads in
 // the key loop. The warps' partials merge in shared memory into one float32
 // partial (acc[D], m, l) per query head and split, written to a workspace
 // (B, Hq, splits, D + 2) that the wrapper allocates. A second launch on the
 // same stream (the combine, one block per (lane, query head)) merges the
 // live splits with the usual max-rescale and writes the output in q's dtype:
-// one call is two device kernels. Both dtypes run it on the CUDA cores in
+// one call is two device kernels. Every dtype runs on the CUDA cores in
 // float32 (tensor cores buy nothing for a byte-bound kernel); the split
 // changes only the order of summation.
-//
-// K4 (int8 paged): one block per (KV head, lane), the G query heads as its
-// rows, loops over 128-key tiles staged in shared memory up to kv_len
-// (attention_common.cuh); tiles left of the window are never loaded. It
-// launches only B·Hkv blocks, which leaves most of the SMs idle at serving
-// batch sizes; split-KV with its int8 loader is later work (ROADMAP).
 #include "attention_common.cuh"
 
 namespace repro_torch {
 
-// ------------------------------------------------ K4: int8 paged caches
-// Pools of int8 with float32 scale pools ks and vs, one scale per key row.
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-decode_kernel(const T* __restrict__ q, const int8_t* __restrict__ k,
-              const int8_t* __restrict__ v, const float* __restrict__ ks,
-              const float* __restrict__ vs, const int* __restrict__ tables,
-              const int* __restrict__ kv_len, T* __restrict__ o, int Hq,
-              int Hkv, int span, int max_blocks, int window, float softcap,
-              float scale, int bk) {
-  extern __shared__ __align__(16) float smem[];
-  const int hk = blockIdx.x;
-  const int b = blockIdx.y;
-  const int G = Hq / Hkv;
-  const int warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  Smem<D> s(smem, G, bk);
-
-  const size_t qoff = ((size_t)b * Hq + (size_t)hk * G) * D;
-  init_rows<T, D>(s, q + qoff, G, scale);
-
-  // span: the pools' block_size
-  const int limit = span * max_blocks;
-  const int kvl = kv_len[b];
-  const int k_end = min(kvl, limit);
-  int k_begin = window > 0 ? max(0, kvl - window) : 0;
-  k_begin = (k_begin / bk) * bk;
-
-  const int* table = tables + (size_t)b * max_blocks;
-  auto row_ptr = [=](int kpos) -> size_t {
-    const int blk = table[kpos / span];
-    return (((size_t)blk * Hkv + hk) * span + kpos % span) * D;
-  };
-  auto valid = [=](int, int kpos) {
-    bool ok = kpos < k_end;
-    if (window > 0) ok = ok && kpos >= kvl - window;
-    return ok;
-  };
-
-  for (int k0 = k_begin; k0 < k_end; k0 += bk) {
-    __syncthreads();
-    load_tile_int8<D>(s, k, v, ks, vs, k0, bk, k_end, row_ptr);
-    __syncthreads();
-    for (int r = warp; r < G; r += nwarps) {   // one row per warp
-      attend_tile<D, 1>(s, r, 1, k0, bk, softcap, valid);
-    }
-  }
-  __syncthreads();
-  for (int r = warp; r < G; r += nwarps) {
-    write_row<T, D>(s, r, o + qoff + (size_t)r * D);
-  }
-}
-
-template <typename T, int D>
-static int launch_decode_int8(const void* q, const int8_t* k, const int8_t* v,
-                              const float* ks, const float* vs,
-                              const int* tables, const int* kv_len, void* o,
-                              int B, int Hq, int Hkv, int span, int max_blocks,
-                              int window, float softcap, float scale, int bk,
-                              cudaStream_t stream) {
-  const size_t smem = smem_floats<D>(Hq / Hkv, bk) * sizeof(float);
-  auto kern = decode_kernel<T, D>;
-  static size_t allowed = 0;
-  if (!raise_smem_limit(kern, smem, allowed)) return (int)cudaGetLastError();
-  dim3 grid(Hkv, B);
-  kern<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), k, v, ks, vs, tables, kv_len,
-      static_cast<T*>(o), Hq, Hkv, span, max_blocks, window, softcap, scale,
-      bk);
-  return (int)cudaGetLastError();
-}
-
-// ------------------------------------------------ K2 v3, K3 v2: split-KV
 constexpr int kSplitSteps = 4;  // warp steps whose loads are in flight
 
-// 16 raw bytes as floats.
-__device__ __forceinline__ void unpack16(const uint4& r, float (&o)[4]) {
+// One lane's slice of a key row: the raw bytes of one load and the V
+// values they hold. Float and bf16 rows: 16 bytes (4 or 8 values); int8
+// rows: 8 bytes (8 values), so that an int8 lane keeps as many values in
+// registers as a bf16 one.
+template <typename KT>
+struct RowSlice {
+  using Raw = uint4;
+  static constexpr int V = vec_len<KT>();
+};
+template <>
+struct RowSlice<int8_t> {
+  using Raw = uint2;
+  static constexpr int V = 8;
+};
+
+// A slice's raw bytes as floats.
+__device__ __forceinline__ void unpack(const uint4& r, float (&o)[4]) {
   o[0] = __uint_as_float(r.x);
   o[1] = __uint_as_float(r.y);
   o[2] = __uint_as_float(r.z);
   o[3] = __uint_as_float(r.w);
 }
-__device__ __forceinline__ void unpack16(const uint4& r, float (&o)[8]) {
+__device__ __forceinline__ void unpack(const uint4& r, float (&o)[8]) {
   const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&r);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -150,20 +91,50 @@ __device__ __forceinline__ void unpack16(const uint4& r, float (&o)[8]) {
     o[2 * i + 1] = f.y;
   }
 }
+__device__ __forceinline__ void unpack(const uint2& r, float (&o)[8]) {
+  // byte i of a word, sign-extended (little-endian: byte 0 is column 0)
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    o[i] = (float)((int)(r.x << (24 - 8 * i)) >> 24);
+    o[4 + i] = (float)((int)(r.y << (24 - 8 * i)) >> 24);
+  }
+}
 
+// V consecutive values of q at p (16-byte aligned) as floats.
+template <typename T, int V>
+__device__ __forceinline__ void load_q(const T* __restrict__ p,
+                                       float (&o)[V]) {
+  constexpr int W = vec_len<T>();
+  static_assert(V % W == 0, "a slice is whole 16-byte vectors of q");
+#pragma unroll
+  for (int c = 0; c < V / W; ++c) {
+    float f[W];
+    load16(p + c * W, f);
+#pragma unroll
+    for (int e = 0; e < W; ++e) o[c * W + e] = f[e];
+  }
+}
+
+// T: q's and the output's type. KT: a key row's type, T or int8_t; int8
+// rows come with float32 scale pools ks and vs (one scale per row, at
+// row(kpos) / D), which are unused otherwise.
 // R: query rows a warp scores per pass over its keys (1 when G = 1, else
 // 4; G > R takes several passes, the later ones reading K/V from cache).
 // PAGED: k and v are pools (num_blocks, Hkv, span, D) read through
 // tables (B, max_blocks) and limit = span * max_blocks; else caches
 // (B, Hkv, limit, D) and tables is unused.
-template <typename T, int D, int R, bool PAGED>
+template <typename T, typename KT, int D, int R, bool PAGED>
 __global__ void __launch_bounds__(kThreads)
-decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const int* __restrict__ tables,
+decode_split_kernel(const T* __restrict__ q, const KT* __restrict__ k,
+                    const KT* __restrict__ v, const float* __restrict__ ks,
+                    const float* __restrict__ vs,
+                    const int* __restrict__ tables,
                     const int* __restrict__ kv_len, float* __restrict__ ws,
                     int Hq, int Hkv, int limit, int span, int max_blocks,
                     int window, float softcap, float scale, int bk) {
-  constexpr int V = vec_len<T>();       // elements of one 16-byte load
+  using Raw = typename RowSlice<KT>::Raw;
+  constexpr bool Q8 = sizeof(KT) == 1;  // int8 rows with a scale each
+  constexpr int V = RowSlice<KT>::V;    // values of one lane's load
   constexpr int LPR = D / V;            // lanes that read one key row
   constexpr int KPS = 32 / LPR;         // keys of one warp step
   // steps in flight: fewer when a step is one key per warp (float32,
@@ -218,7 +189,7 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
     float qf[R][V];                     // this lane's columns, pre-scaled
 #pragma unroll
     for (int i = 0; i < R; ++i) {
-      load16(qb + (size_t)(g0 + min(i, nr - 1)) * D + col, qf[i]);
+      load_q<T, V>(qb + (size_t)(g0 + min(i, nr - 1)) * D + col, qf[i]);
 #pragma unroll
       for (int e = 0; e < V; ++e) qf[i][e] *= scale;
     }
@@ -231,25 +202,31 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int e = 0; e < V; ++e) acc[i][e] = 0.f;
     }
     for (int st0 = warp; st0 < steps; st0 += NB * NW) {
-      uint4 kr[NB], vr[NB];
+      Raw kr[NB], vr[NB];
+      float ksc[NB], vsc[NB];           // int8 rows' scales
       bool ok[NB];
 #pragma unroll
       for (int u = 0; u < NB; ++u) {
         const int kpos = s0 + (st0 + u * NW) * KPS + sub;
         ok[u] = kpos < s1;
         if (ok[u]) {
-          const size_t off = row(kpos) + col;
-          kr[u] = *reinterpret_cast<const uint4*>(k + off);
-          vr[u] = *reinterpret_cast<const uint4*>(v + off);
+          const size_t r = row(kpos);
+          kr[u] = *reinterpret_cast<const Raw*>(k + r + col);
+          vr[u] = *reinterpret_cast<const Raw*>(v + r + col);
+          if constexpr (Q8) {
+            ksc[u] = ks[r / D];
+            vsc[u] = vs[r / D];
+          }
         } else {
-          kr[u] = vr[u] = make_uint4(0u, 0u, 0u, 0u);
+          kr[u] = vr[u] = Raw{};
+          if constexpr (Q8) ksc[u] = vsc[u] = 0.f;
         }
       }
       float sc[NB][R];
 #pragma unroll
       for (int u = 0; u < NB; ++u) {
         float kf[V];
-        unpack16(kr[u], kf);
+        unpack(kr[u], kf);
 #pragma unroll
         for (int i = 0; i < R; ++i) {
           float x = 0.f;
@@ -259,6 +236,7 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
           for (int off = LPR / 2; off > 0; off >>= 1) {
             x += __shfl_xor_sync(kFull, x, off);
           }
+          if constexpr (Q8) x *= ksc[u];
           if (softcap > 0.f) x = softcap * tanhf(x / softcap);
           sc[u][i] = ok[u] ? x : kNegInf;
         }
@@ -272,16 +250,22 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
         l[i] *= alpha;
 #pragma unroll
         for (int e = 0; e < V; ++e) acc[i][e] *= alpha;
-#pragma unroll
-        for (int u = 0; u < NB; ++u) {
-          float vf[V];
-          unpack16(vr[u], vf);
-          const float p = ok[u] ? expf(sc[u][i] - mx) : 0.f;
-          l[i] += p;
-#pragma unroll
-          for (int e = 0; e < V; ++e) acc[i][e] = fmaf(p, vf[e], acc[i][e]);
-        }
         m[i] = mx;
+      }
+      // each V slice converted once, then accumulated into every row
+#pragma unroll
+      for (int u = 0; u < NB; ++u) {
+        float vf[V];
+        unpack(vr[u], vf);
+#pragma unroll
+        for (int i = 0; i < R; ++i) {
+          const float p = ok[u] ? expf(sc[u][i] - m[i]) : 0.f;
+          l[i] += p;
+          float pv = p;
+          if constexpr (Q8) pv *= vsc[u];
+#pragma unroll
+          for (int e = 0; e < V; ++e) acc[i][e] = fmaf(pv, vf[e], acc[i][e]);
+        }
       }
     }
     // merge the warp's KPS key streams (lanes LPR apart) into lanes < LPR
@@ -368,21 +352,22 @@ decode_combine_kernel(const float* __restrict__ ws, T* __restrict__ o,
 
 // The split kernel then the combine, on one stream. Dense: k, v caches
 // (B, Hkv, limit, D), tables null; paged: pools and tables, limit =
-// span * max_blocks.
-template <typename T, int D, bool PAGED>
+// span * max_blocks. KT int8_t: int8 pools with scale pools ks, vs.
+template <typename T, typename KT, int D, bool PAGED>
 static int launch_split(const void* q, const void* k, const void* v,
-                        const int* tables, const int* kv_len, float* ws,
-                        void* o, int B, int Hq, int Hkv, int limit, int span,
-                        int max_blocks, int window, float softcap, float scale,
-                        int bk, cudaStream_t stream) {
+                        const float* ks, const float* vs, const int* tables,
+                        const int* kv_len, float* ws, void* o, int B, int Hq,
+                        int Hkv, int limit, int span, int max_blocks,
+                        int window, float softcap, float scale, int bk,
+                        cudaStream_t stream) {
   const int splits = limit > bk ? (limit + bk - 1) / bk : 1;
   const dim3 grid(splits, Hkv, B);
-  auto kern = Hq == Hkv ? decode_split_kernel<T, D, 1, PAGED>
-                        : decode_split_kernel<T, D, 4, PAGED>;
+  auto kern = Hq == Hkv ? decode_split_kernel<T, KT, D, 1, PAGED>
+                        : decode_split_kernel<T, KT, D, 4, PAGED>;
   kern<<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), tables, kv_len, ws, Hq, Hkv, limit, span,
-      max_blocks, window, softcap, scale, bk);
+      static_cast<const T*>(q), static_cast<const KT*>(k),
+      static_cast<const KT*>(v), ks, vs, tables, kv_len, ws, Hq, Hkv, limit,
+      span, max_blocks, window, softcap, scale, bk);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   auto combine = decode_combine_kernel<T, D>;
@@ -405,9 +390,10 @@ extern "C" int repro_decode_attention(int dtype, int head_dim, const void* q,
                                       void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define REPRO_DENSE(T, D)                                                   \
-  return launch_split<T, D, false>(q, k_cache, v_cache, nullptr, kv_len,    \
-                                   workspace, o, B, Hq, Hkv, Smax, 0, 0,    \
-                                   window, softcap, scale, block_k, st)
+  return launch_split<T, T, D, false>(q, k_cache, v_cache, nullptr,         \
+                                      nullptr, nullptr, kv_len, workspace,  \
+                                      o, B, Hq, Hkv, Smax, 0, 0, window,    \
+                                      softcap, scale, block_k, st)
   if (dtype == 0 && head_dim == 64) REPRO_DENSE(float, 64);
   if (dtype == 0 && head_dim == 128) REPRO_DENSE(float, 128);
   if (dtype == 1 && head_dim == 64) REPRO_DENSE(__nv_bfloat16, 64);
@@ -427,11 +413,11 @@ extern "C" int repro_paged_decode_attention(
     void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define REPRO_PAGED(T, D)                                                   \
-  return launch_split<T, D, true>(q, k_pool, v_pool, block_tables, kv_len,  \
-                                  workspace, o, B, Hq, Hkv,                 \
-                                  block_size * max_blocks, block_size,      \
-                                  max_blocks, window, softcap, scale,       \
-                                  block_k, st)
+  return launch_split<T, T, D, true>(q, k_pool, v_pool, nullptr, nullptr,   \
+                                     block_tables, kv_len, workspace, o, B, \
+                                     Hq, Hkv, block_size * max_blocks,      \
+                                     block_size, max_blocks, window,        \
+                                     softcap, scale, block_k, st)
   if (dtype == 0 && head_dim == 64) REPRO_PAGED(float, 64);
   if (dtype == 0 && head_dim == 128) REPRO_PAGED(float, 128);
   if (dtype == 1 && head_dim == 64) REPRO_PAGED(__nv_bfloat16, 64);
@@ -442,22 +428,20 @@ extern "C" int repro_paged_decode_attention(
 
 // K4. k/v pools (num_blocks, Hkv, block_size, D) int8; k/v scale pools
 // (num_blocks, Hkv, block_size, 1) float32; block_tables (B, max_blocks)
-// int32, every entry a valid pool index; kv_len (B,) int32; q and out of
-// `dtype`.
+// int32, every entry a valid pool index; kv_len (B,) int32; workspace as
+// K3's; q and out of `dtype`.
 extern "C" int repro_paged_decode_attention_int8(
     int dtype, int head_dim, const void* q, const void* k_pool,
     const void* v_pool, const float* k_scale_pool, const float* v_scale_pool,
-    const int* block_tables, const int* kv_len, void* o, int B, int Hq,
-    int Hkv, int block_size, int max_blocks, int window, float softcap,
-    float scale, int block_k, void* stream) {
+    const int* block_tables, const int* kv_len, float* workspace, void* o,
+    int B, int Hq, int Hkv, int block_size, int max_blocks, int window,
+    float softcap, float scale, int block_k, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int8_t* k = static_cast<const int8_t*>(k_pool);
-  const int8_t* v = static_cast<const int8_t*>(v_pool);
 #define REPRO_INT8(T, D)                                                    \
-  return launch_decode_int8<T, D>(q, k, v, k_scale_pool, v_scale_pool,     \
-                                  block_tables, kv_len, o, B, Hq, Hkv,     \
-                                  block_size, max_blocks, window, softcap, \
-                                  scale, block_k, st)
+  return launch_split<T, int8_t, D, true>(                                  \
+      q, k_pool, v_pool, k_scale_pool, v_scale_pool, block_tables, kv_len,  \
+      workspace, o, B, Hq, Hkv, block_size * max_blocks, block_size,        \
+      max_blocks, window, softcap, scale, block_k, st)
   if (dtype == 0 && head_dim == 64) REPRO_INT8(float, 64);
   if (dtype == 0 && head_dim == 128) REPRO_INT8(float, 128);
   if (dtype == 1 && head_dim == 64) REPRO_INT8(__nv_bfloat16, 64);

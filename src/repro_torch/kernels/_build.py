@@ -41,8 +41,8 @@ _SIGNATURES = {
     "repro_paged_decode_attention": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _I,
                                      _I, _I, _I, _I, _I, _F, _F, _I, _P],
     "repro_paged_decode_attention_int8": [_I, _I, _P, _P, _P, _P, _P, _P, _P,
-                                          _P, _I, _I, _I, _I, _I, _I, _F, _F,
-                                          _I, _P],
+                                          _P, _P, _I, _I, _I, _I, _I, _I, _F,
+                                          _F, _I, _P],
     "repro_ssd_scan": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                        _I, _I, _I, _P],
 }

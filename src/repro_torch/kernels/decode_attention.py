@@ -5,12 +5,12 @@ K2 replaces the Pallas TPU kernel ``repro/kernels/decode_attention.py::
 decode_attention`` (body ``_decode_kernel``); K3 replaces
 ``paged_decode_attention`` (body ``_paged_decode_kernel``); K4 replaces
 ``paged_decode_attention_int8`` (body ``_paged_decode_int8_kernel``). All
-three are ``csrc/decode_attention.cu``. K2 and K3 split the KV axis across
-blocks with one kernel (they differ only in where a key row lives: a dense
-slab, or a pool block found through the block table) and merge the splits'
-float32 partials in a second launch (two device kernels per call, one
-count); K4 walks 128-key int8 tiles in one block per (KV head, lane). Its
-header note says what bounds them.
+three are ``csrc/decode_attention.cu``: one kernel splits the KV axis across
+blocks and a second launch merges the splits' float32 partials (two device
+kernels per call, one count). The three differ only in where a key row
+lives (a dense slab, or a pool block found through the block table) and in
+what it holds (float or bf16 values, or int8 values with a float32 scale,
+converted in registers). Its header note says what bounds them.
 """
 from __future__ import annotations
 
@@ -22,12 +22,11 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.flash_attention import DTYPE_CODES, check_inputs
 
-PAGED_BLOCK_K = 128    # K4's shared-memory tile: any pool block size works
-SPLIT_KS = (32, 64, 128)   # K3's keys per split; any pool block size works
+SPLIT_KS = (32, 64, 128)   # K3's and K4's keys per split; any pool block size
 
 
 def num_splits(smax: int, block_k: int) -> int:
-    """K2's and K3's KV splits: fixed from the cache's extent (Smax, or
+    """K2's, K3's and K4's KV splits: fixed from the cache's extent (Smax, or
     block_size * max_blocks), never from kv_len, so a call needs no host
     sync and captures into a CUDA graph."""
     return max(1, -(-smax // block_k))
@@ -133,9 +132,7 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
     check_inputs("paged_decode_attention", q, k_pool, v_pool)
     _check_common("paged_decode_attention", q, kv_len, window, softcap,
                   block_k)
-    if block_k not in SPLIT_KS:
-        raise ValueError(f"paged_decode_attention: block_k {block_k} not in "
-                         f"{SPLIT_KS}")
+    _check_split("paged_decode_attention", block_k)
     B, Hq, _, D = q.shape
     _, Hkv, bs, Dp = k_pool.shape
     if v_pool.shape != k_pool.shape or Dp != D or Hq % Hkv:
@@ -146,8 +143,7 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
     if out.numel() == 0:
         return out
     max_blocks = block_tables.shape[1]
-    ws = torch.empty((B, Hq, num_splits(bs * max_blocks, block_k), D + 2),
-                     dtype=torch.float32, device=q.device)
+    ws = _paged_workspace(q, bs * max_blocks, block_k)
     code = _build.library().repro_paged_decode_attention(
         DTYPE_CODES[q.dtype], D, q.data_ptr(), k_pool.data_ptr(),
         v_pool.data_ptr(), block_tables.data_ptr(), kv_len.data_ptr(),
@@ -157,6 +153,19 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
     _build.check(code, "paged_decode_attention")
     paged_decode_attention.launches += 1
     return out
+
+
+def _check_split(name, block_k) -> None:
+    if block_k not in SPLIT_KS:
+        raise ValueError(f"{name}: block_k {block_k} not in {SPLIT_KS}")
+
+
+def _paged_workspace(q, limit, block_k) -> torch.Tensor:
+    """The float32 partials (B, Hq, splits, D + 2) of a paged call, splits =
+    ceil(block_size * max_blocks / block_k)."""
+    B, Hq, _, D = q.shape
+    return torch.empty((B, Hq, num_splits(limit, block_k), D + 2),
+                       dtype=torch.float32, device=q.device)
 
 
 def _check_tables(name, block_tables, B, device) -> None:
@@ -207,33 +216,37 @@ def paged_decode_attention_int8(q: torch.Tensor, k_pool: torch.Tensor,
                                 block_tables: torch.Tensor,
                                 kv_len: torch.Tensor, *,
                                 window: Optional[int] = None,
-                                softcap: Optional[float] = None
-                                ) -> torch.Tensor:
+                                softcap: Optional[float] = None,
+                                block_k: int = 64) -> torch.Tensor:
     """K4. q: (B, Hq, 1, D) float32 or bfloat16; k/v pools (num_blocks,
     Hkv, block_size, D) int8; k/v scale pools (num_blocks, Hkv, block_size,
     1) float32; block_tables (B, max_blocks) int32, every entry a valid pool
     index; kv_len (B,) int32. Returns (B, Hq, 1, D) in q's dtype. CUDA
     tensors launch the kernel (or raise); CPU tensors take the plain
-    version."""
+    version. ``block_k`` keys per split, one of ``SPLIT_KS``; the float32
+    workspace is K3's, allocated here."""
     if q.device.type == "cpu":
         return paged_decode_attention_int8_ref(
             q, k_pool, v_pool, k_scale_pool, v_scale_pool, block_tables,
             kv_len, window=window, softcap=softcap)
     _check_int8_pools(q, k_pool, v_pool, k_scale_pool, v_scale_pool)
     _check_common("paged_decode_attention_int8", q, kv_len, window, softcap,
-                  PAGED_BLOCK_K)
+                  block_k)
+    _check_split("paged_decode_attention_int8", block_k)
     B, Hq, _, D = q.shape
     _, Hkv, bs, _ = k_pool.shape
     _check_tables("paged_decode_attention_int8", block_tables, B, q.device)
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
+    max_blocks = block_tables.shape[1]
+    ws = _paged_workspace(q, bs * max_blocks, block_k)
     code = _build.library().repro_paged_decode_attention_int8(
         DTYPE_CODES[q.dtype], D, q.data_ptr(), k_pool.data_ptr(),
         v_pool.data_ptr(), k_scale_pool.data_ptr(), v_scale_pool.data_ptr(),
-        block_tables.data_ptr(), kv_len.data_ptr(), out.data_ptr(), B, Hq,
-        Hkv, bs, block_tables.shape[1], window or 0, float(softcap or 0.0),
-        float(D ** -0.5), PAGED_BLOCK_K,
+        block_tables.data_ptr(), kv_len.data_ptr(), ws.data_ptr(),
+        out.data_ptr(), B, Hq, Hkv, bs, max_blocks, window or 0,
+        float(softcap or 0.0), float(D ** -0.5), block_k,
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(code, "paged_decode_attention_int8")
     paged_decode_attention_int8.launches += 1

@@ -311,6 +311,22 @@ def test_many_query_heads_per_kv_head_on_card(dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_many_query_heads_per_kv_head_on_card(dtype):
+    """falcon-7b's grouping through the block tables: K3 with 71 query
+    heads on one KV head at D = 64, against its plain version."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    q, kp, vp, tables, kv = _paged_inputs(gen, dtype, [37, 100], 71, 1, 64,
+                                          16, 8)
+    for kw in ({}, {"window": 50}):
+        torch.testing.assert_close(
+            DA.paged_decode_attention(q, kp, vp, tables, kv, **kw).float(),
+            DA.paged_decode_attention_ref(q, kp, vp, tables, kv, **kw)
+            .float(), atol=TOL[dtype], rtol=TOL[dtype])
+
+
+@pytest.mark.gpu
 def test_decode_captures_into_a_cuda_graph_and_counts_calls():
     """One K2 call is two device kernels (splits, combine) and one count; it
     needs no host sync, so it captures into a CUDA graph, and a replay reads
@@ -620,3 +636,87 @@ def test_int8_wrapper_raises_on_inputs_it_does_not_take():
     DA.paged_decode_attention_int8(q, kp, vp, ks, vs, tables, kvl)
     DA.paged_decode_attention_int8_ref(q, kp, vp, ks, vs, tables, kvl)
     assert DA.paged_decode_attention_int8.launches == before + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("span", [8, 16])
+@pytest.mark.parametrize("block_k", [32, 64, 128])
+@pytest.mark.parametrize("G,D", [(1, 128), (4, 64), (4, 128)])
+def test_int8_split_edges_on_card(dtype, span, block_k, G, D):
+    """K4 v2 (K3's split-KV over int8 rows) at kv_len 0 and on both sides
+    of a split edge, with a window of 71 that cuts splits and a softcap of
+    20, against its plain version (and in float32 the gather oracle) on
+    rows with a valid key; the kv_len 0 lane is 0."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    kv_len = [0, 1, block_k - 1, block_k, block_k + 1, 2 * block_k + 9]
+    nb = 1 + sum(-(-n // span) for n in kv_len)
+    inp = _int8_inputs(gen, dtype, len(kv_len), G * 2, 2, D, span, nb, kv_len)
+    rows = inp[6] > 0
+    tol = QUANT_TOL[dtype]
+    for kw in ({}, {"window": 71}, {"softcap": 20.0}):
+        got = DA.paged_decode_attention_int8(*inp, block_k=block_k, **kw)
+        want = DA.paged_decode_attention_int8_ref(*inp, **kw)
+        torch.testing.assert_close(got[rows].float(), want[rows].float(),
+                                   atol=tol, rtol=tol)
+        assert torch.count_nonzero(got[~rows]) == 0
+        if dtype == torch.float32:
+            oracle = ref.paged_decode_attention_quant(*inp[:6], kv_len=inp[6],
+                                                      **kw)
+            torch.testing.assert_close(got[rows], oracle[rows],
+                                       atol=GATHER_TOL, rtol=GATHER_TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int8_many_query_heads_per_kv_head_on_card(dtype):
+    """falcon-7b's grouping, 71 query heads on one KV head at D = 64: K4
+    scores its rows four per pass (18 passes) over int8 rows."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    inp = _int8_inputs(gen, dtype, 2, 71, 1, 64, 16, 16, [37, 100])
+    for kw in ({}, {"window": 50}):
+        torch.testing.assert_close(
+            DA.paged_decode_attention_int8(*inp, **kw).float(),
+            DA.paged_decode_attention_int8_ref(*inp, **kw).float(),
+            atol=QUANT_TOL[dtype], rtol=QUANT_TOL[dtype])
+
+
+@pytest.mark.gpu
+def test_int8_paged_decode_captures_into_a_cuda_graph():
+    """A K4 call (split and combine, a workspace from torch.empty) needs no
+    host sync, so it captures into a CUDA graph and a replay reads the new
+    kv_len. One count per call."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    inp = _int8_inputs(gen, torch.bfloat16, 4, 32, 8, 128, 16, 1024,
+                       [40, 130, 300, 528])
+    kv = inp[6]
+    before = DA.paged_decode_attention_int8.launches
+    eager = DA.paged_decode_attention_int8(*inp)
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out = DA.paged_decode_attention_int8(*inp)
+    g.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
+    kv -= 7
+    g.replay()
+    torch.testing.assert_close(
+        out.float(), DA.paged_decode_attention_int8_ref(*inp).float(),
+        atol=2e-2, rtol=2e-2)
+    assert DA.paged_decode_attention_int8.launches == before + 2
+
+
+@pytest.mark.gpu
+def test_int8_paged_decode_refuses_a_split_it_does_not_take():
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    inp = _int8_inputs(gen, torch.float32, 1, 2, 1, 64, 16, 4, [20])
+    before = DA.paged_decode_attention_int8.launches
+    for bk in (16, 48, 96, 256):
+        with pytest.raises(ValueError, match="block_k"):
+            DA.paged_decode_attention_int8(*inp, block_k=bk)
+    assert DA.paged_decode_attention_int8.launches == before

@@ -170,6 +170,27 @@ def test_int8_references_match_jax_and_pallas(dtype, softcap, window):
                                rtol=tol)
 
 
+@pytest.mark.parametrize("Hq,Hkv", [(4, 4), (4, 1), (71, 1)])
+def test_int8_reads_match_jax_across_groupings(Hq, Hkv):
+    """K4's plain version and the gather read at llama2-7b's MHA (G = 1),
+    reduced falcon-7b's MQA (4 heads on one KV head) and full falcon-7b's
+    (71 on one), D = 64, with a window, against the JAX package and the
+    Pallas kernel (interpret mode)."""
+    (qj, kpj, vpj, ksj, vsj, tj, lj), tx = _quant_inputs(11, "float32",
+                                                         Hq=Hq, Hkv=Hkv)
+    kw = dict(window=48)
+    fused = ref.paged_decode_attention_quant_fused(*tx[:6], kv_len=tx[6],
+                                                   **kw)
+    gather = ref.paged_decode_attention_quant(*tx[:6], kv_len=tx[6], **kw)
+    tol = TOL["float32"]
+    _close(fused, jref.paged_decode_attention_quant_fused(
+        qj, kpj, vpj, ksj, vsj, tj, kv_len=lj, **kw), tol)
+    _close(fused, pallas_int8(qj, kpj, vpj, ksj, vsj, tj, lj, interpret=True,
+                              **kw), tol)
+    _close(gather, jref.paged_decode_attention_quant(
+        qj, kpj, vpj, ksj, vsj, tj, kv_len=lj, **kw), tol)
+
+
 def test_int8_wrapper_on_cpu_launches_nothing():
     _, tx = _quant_inputs(3, "float32")
     before = DA.paged_decode_attention_int8.launches
@@ -179,7 +200,9 @@ def test_int8_wrapper_on_cpu_launches_nothing():
 
 
 # ------------------------------------------------------------ whole models
-@pytest.fixture(scope="module", params=["smollm-360m", "mistral-7b"])
+# llama2-7b holds the int8 reads at G = 1 (MQA: the groupings test above)
+@pytest.fixture(scope="module", params=["smollm-360m", "mistral-7b",
+                                        "llama2-7b"])
 def pair(request):
     jcfg = jax_config(request.param).reduced()
     tcfg = get_config(request.param).reduced()
@@ -388,14 +411,20 @@ def test_int8_fleet_report_matches_jax(engines, paged):
 
 
 def test_int8_kernel_source_is_in_the_lazy_build():
-    """K4 is a mode of csrc/decode_attention.cu that names the TPU kernel it
-    replaces; its C entry point has a ctypes signature; importing its
-    wrapper builds nothing."""
+    """K4 is the split kernel of csrc/decode_attention.cu with int8 rows
+    (K2's and K3's kernel and combine), and names the TPU kernel it
+    replaces; the shared-memory int8 tile kernel is gone; its C entry point
+    has a ctypes signature with the workspace; importing its wrapper builds
+    nothing."""
     from repro_torch.kernels import _build
     assert _build._lib is None
     text = (_build.CSRC_DIR / "decode_attention.cu").read_text()
     assert "_paged_decode_int8_kernel" in text
     assert 'extern "C" int repro_paged_decode_attention_int8(' in text
-    assert "load_tile_int8" in (_build.CSRC_DIR /
-                                "attention_common.cuh").read_text()
-    assert len(_build._SIGNATURES["repro_paged_decode_attention_int8"]) == 20
+    assert "launch_split<T, int8_t, D, true>" in text
+    assert "decode_kernel(" not in text and "launch_decode_int8" not in text
+    assert "load_tile_int8" not in (_build.CSRC_DIR /
+                                    "attention_common.cuh").read_text()
+    # dtype, head dim, 9 pointers (q, pools, scale pools, tables, kv_len,
+    # workspace, out), 6 ints, softcap, scale, block_k, stream
+    assert len(_build._SIGNATURES["repro_paged_decode_attention_int8"]) == 21

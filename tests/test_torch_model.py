@@ -21,7 +21,11 @@ from repro_torch.models import layers as L
 from repro_torch.models import model as M
 from repro_torch.models.convert import from_jax_params
 
-ARCHS = ["smollm-360m", "mistral-7b"]
+# the dense configs: the serving tests' smollm-360m, the paper's mistral-7b,
+# llama2-7b (MHA, G = 1) and falcon-7b (MQA, 71 heads on one KV head, gelu),
+# qwen2.5-3b (qkv bias), deepseek-7b and phi3-medium-14b
+ARCHS = ["smollm-360m", "mistral-7b", "llama2-7b", "falcon-7b", "qwen2.5-3b",
+         "deepseek-7b", "phi3-medium-14b"]
 TOL = 1e-4
 
 
@@ -123,6 +127,21 @@ def test_paged_chunk_and_decode_logits(pair):
     np.testing.assert_array_equal(tc["pos"].numpy(), np.asarray(jc["pos"]))
     # the live blocks hold the same K/V (the null block holds garbage)
     _close(tc["kp"][:, 1:], jc["kp"][:, 1:])
+
+
+def test_greedy_tokens_match_jax_engine(pair):
+    """Each dense config's engine generates the JAX engine's greedy tokens
+    (two prompts of 9, 12 new tokens)."""
+    from repro.serving.engine import InferenceEngine as JaxEngine
+    from repro_torch.serving.engine import InferenceEngine
+    jcfg, jp, tcfg, tp = pair
+    toks = np.random.default_rng(2).integers(
+        0, jcfg.vocab_size, size=(2, 9)).astype(np.int32)
+    want = JaxEngine(jcfg, jp, max_len=40).generate(
+        {"tokens": jnp.asarray(toks)}, 12).tokens
+    got = InferenceEngine(tcfg, tp, max_len=40, device="cpu").generate(
+        {"tokens": torch.from_numpy(toks)}, 12)
+    np.testing.assert_array_equal(got.tokens, want)
 
 
 def test_paged_prefill_matches_dense_prefill(pair):

@@ -18,6 +18,13 @@ against the reference before any card sees it:
   the Pallas ``paged_decode_attention`` (interpret mode) in float32 at
   2e-5, at kv_len on either side of a split edge, a window that cuts
   splits, a lane with kv_len 0, span 16 and 32, and G = 1 and 4.
+* K4 v2 runs K3 v2's split and combine over int8 pools with one float32
+  scale per key row, folded as K4's plain version folds them: the score is
+  (q·k8)·ks, then the softcap and the mask, and each split accumulates
+  p·vs·v8 while l sums p. Its mirror is held against
+  ``repro.kernels.ref.paged_decode_attention_quant_fused`` and the Pallas
+  ``paged_decode_attention_int8`` (interpret mode) in float32 at 2e-5, over
+  the same grid of cases as K3's, plus a softcap with a lane of kv_len 0.
 * K1 v3 computes S = Q·Kᵀ from bf16 values with float32 accumulation, scales
   S (not Q) by D^-0.5 in float32, and rounds P to bf16 before P·V while the
   row sums l use the unrounded P. The mirror below walks key tiles with that
@@ -38,6 +45,8 @@ from repro.kernels import ref as jref
 from repro.kernels.decode_attention import decode_attention as pallas_decode
 from repro.kernels.decode_attention import \
     paged_decode_attention as pallas_paged
+from repro.kernels.decode_attention import \
+    paged_decode_attention_int8 as pallas_int8
 
 NEG_INF = -1e30     # the kernels' and the reference's mask value
 F32_TOL = 2e-5
@@ -71,9 +80,28 @@ def paged_splitkv_decode(q, k_pool, v_pool, block_tables, kv_len, *,
                     block_k=block_k, window=window, softcap=softcap)
 
 
+def paged_splitkv_int8_decode(q, k_pool, v_pool, k_scale_pool, v_scale_pool,
+                              block_tables, kv_len, *, block_k, window=None,
+                              softcap=None):
+    """K4 v2's arithmetic: K3 v2's over int8 pools (num_blocks, Hkv, span, D)
+    with float32 scale pools (num_blocks, Hkv, span, 1), one scale per key
+    row, folded into the score and into p, never into a dequantized row."""
+    span = k_pool.shape[2]
+    tables = torch.as_tensor(block_tables).long()
+
+    def rows(pos):
+        blk = tables[:, pos // span]                          # (B, n)
+        off = pos % span
+        return tuple(t[blk, :, off].permute(0, 2, 1, 3) for t in
+                     (k_pool, v_pool, k_scale_pool, v_scale_pool))
+    return _splitkv(q, rows, span * tables.shape[1], kv_len,
+                    block_k=block_k, window=window, softcap=softcap)
+
+
 def _splitkv(q, rows, Smax, kv_len, *, block_k, window, softcap):
     """The split and the combine; rows(pos) gives K and V (B, Hkv, n, D) of
-    the key positions pos."""
+    the key positions pos, and for int8 rows also their scales
+    (B, Hkv, n, 1)."""
     B, Hq, _, D = q.shape
     splits = max(1, -(-Smax // block_k))
     qs = q[:, :, 0].float() * D ** -0.5                       # (B, Hq, D)
@@ -87,11 +115,14 @@ def _splitkv(q, rows, Smax, kv_len, *, block_k, window, softcap):
         pos = torch.arange(s * block_k, min(Smax, s * block_k + block_k))
         ok = (pos[None, :] >= s0[:, None]) & (pos[None, :] < s1[:, None])
         ok = ok[:, None, :]                                   # (B, 1, n)
-        kp, vp = rows(pos)
+        kp, vp, *scales = rows(pos)
         G = Hq // kp.shape[1]
         kf = kp.float().repeat_interleave(G, dim=1)
         vf = vp.float().repeat_interleave(G, dim=1)
         x = torch.einsum("bhd,bhnd->bhn", qs, kf)
+        if scales:          # int8 rows: s = (q·k8)·ks
+            ksc, vsc = (t[..., 0].repeat_interleave(G, dim=1) for t in scales)
+            x = x * ksc
         if softcap is not None:
             x = softcap * torch.tanh(x / softcap)
         x = torch.where(ok, x, torch.full_like(x, NEG_INF))
@@ -99,7 +130,8 @@ def _splitkv(q, rows, Smax, kv_len, *, block_k, window, softcap):
         p = torch.where(ok, torch.exp(x - m[..., None]), torch.zeros_like(x))
         l = p.sum(-1)
         live = (s0 < s1)[:, None].expand(B, Hq)
-        parts[:, :, s, :D] = torch.einsum("bhn,bhnd->bhd", p, vf)
+        pv = p * vsc if scales else p       # int8 rows: p·vs·v8
+        parts[:, :, s, :D] = torch.einsum("bhn,bhnd->bhd", pv, vf)
         parts[:, :, s, D] = torch.where(live, m, torch.full_like(m, NEG_INF))
         parts[:, :, s, D + 1] = torch.where(live, l, torch.zeros_like(l))
     m, l = parts[..., D], parts[..., D + 1]
@@ -217,6 +249,86 @@ def test_paged_splitkv_mirror_matches_jax_and_pallas(block_k, span, G,
     for want in wants:
         np.testing.assert_allclose(got.numpy()[~dead], want[~dead],
                                    atol=F32_TOL, rtol=F32_TOL)
+
+
+# ------------------------------------------------------------------ K4 v2
+def _tables(rng, kv_len, span, max_blocks, num_blocks):
+    """Each lane's live blocks are distinct random pool blocks; dead
+    entries are the null block 0."""
+    tables = np.zeros((len(kv_len), max_blocks), np.int32)
+    perm = rng.permutation(num_blocks - 1) + 1
+    used = 0
+    for b, n in enumerate(kv_len):
+        nb = -(-int(n) // span)
+        tables[b, :nb] = perm[used:used + nb]
+        used += nb
+    return tables
+
+
+def _int8_case(seed, span, G, kv_len, max_blocks, window=None, softcap=None):
+    """int8 pools, float32 scale pools in [0.005, 0.02), tables, and the JAX
+    package's answers: the fused int8 read and the Pallas kernel in
+    interpret mode."""
+    Hkv, D = 2, 64
+    rng = np.random.default_rng(seed)
+    num_blocks = 1 + int(sum(-(-n // span) for n in kv_len))
+    q = rng.normal(size=(len(kv_len), G * Hkv, 1, D)).astype(np.float32)
+    shape = (num_blocks, Hkv, span, D)
+    kp, vp = (rng.integers(-127, 128, size=shape).astype(np.int8)
+              for _ in range(2))
+    ks, vs = (rng.uniform(0.005, 0.02, size=shape[:3] + (1,))
+              .astype(np.float32) for _ in range(2))
+    tables = _tables(rng, kv_len, span, max_blocks, num_blocks)
+    kw = {k: v for k, v in (("window", window), ("softcap", softcap))
+          if v is not None}
+    j = [jnp.asarray(a) for a in (q, kp, vp, ks, vs, tables, kv_len)]
+    wants = [jref.paged_decode_attention_quant_fused(*j[:6], kv_len=j[6],
+                                                     **kw),
+             pallas_int8(*j, interpret=True, **kw)]
+    return (q, kp, vp, ks, vs, tables, kv_len), [np.asarray(w) for w in wants]
+
+
+@functools.lru_cache(maxsize=None)
+def _paged_int8_case(span, G, window):
+    """K3's lanes (kv_len 0, either side of every split edge of block_k 32,
+    64 and 128, the whole table) over int8 pools."""
+    kv_len = np.asarray([0, 1, 31, 32, 33, 63, 64, 65, 127, 128, 129, 0],
+                        np.int32)
+    max_blocks = -(-(2 * 128 + 9) // span)
+    kv_len[-1] = span * max_blocks
+    return _int8_case(70 + span + G, span, G, kv_len, max_blocks, window)
+
+
+def _check_int8_mirror(inputs, wants, block_k, window=None, softcap=None):
+    q, kp, vp, ks, vs, tables, kv_len = inputs
+    got, parts = paged_splitkv_int8_decode(
+        *(torch.from_numpy(a) for a in (q, kp, vp, ks, vs)), tables, kv_len,
+        block_k=block_k, window=window, softcap=softcap)
+    assert parts.shape[2] == -(-kp.shape[2] * tables.shape[1] // block_k)
+    dead = kv_len == 0
+    assert torch.count_nonzero(got[dead]) == 0
+    assert torch.count_nonzero(parts[dead][..., -1]) == 0     # l = 0
+    for want in wants:
+        np.testing.assert_allclose(got.numpy()[~dead], want[~dead],
+                                   atol=F32_TOL, rtol=F32_TOL)
+
+
+@pytest.mark.parametrize("block_k", [32, 64, 128])
+@pytest.mark.parametrize("span", [16, 32])
+@pytest.mark.parametrize("G", [1, 4])
+@pytest.mark.parametrize("window", [None, 71])
+def test_paged_splitkv_int8_mirror_matches_jax_and_pallas(block_k, span, G,
+                                                          window):
+    inputs, wants = _paged_int8_case(span, G, window)
+    _check_int8_mirror(inputs, wants, block_k, window=window)
+
+
+def test_paged_splitkv_int8_mirror_softcap_and_dead_lane():
+    """Softcap 20 at pool blocks of 8 (the reduced tests' span), G = 4: the
+    lane of kv_len 0 is 0 and carries l = 0 in every split."""
+    kv_len = np.asarray([0, 45, 96, 130], np.int32)
+    inputs, wants = _int8_case(91, 8, 4, kv_len, 18, softcap=20.0)
+    _check_int8_mirror(inputs, wants, 64, softcap=20.0)
 
 
 # ------------------------------------------------------------------ K1 v3
