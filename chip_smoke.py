@@ -67,14 +67,44 @@ Phases, each printing its own lines; any failure exits non-zero:
                launch for both, K1 and K2 for zamba2;
   7. serve   — phase 5 with an int8 KV cache, with an autotune cache
                installed that routes the paged batchers' int8 read (bucket
-               b4c1024) to K4: K4, K1 and K2 must launch.
+               b4c1024) to K4: K4, K1 and K2 must launch;
+  8. disagg  — disaggregated prefill and decode through
+               FleetRouter(policy="disaggregated") over the probe pool pair
+               (a slow, near-dark eff pool and a fast, high-idle perf pool
+               joined by a 400 Gb/s link, priced with mistral-7b's config),
+               with KV handoff between the paged pools:
+               8a. migrate_kv_blocks on the card between two pools of
+                   mistral-7b's geometry (2 layers, Hkv 8, D 128, blocks of
+                   16), bf16, float32 and int8 with its scale pools: a
+                   ragged set of blocks bit for bit equal to the source,
+                   the source unchanged, the other destination blocks
+                   untouched, the payload bytes as counted; then K3 (K4 for
+                   int8) at kv_len 40/130/300/528 over the destination
+                   pool and tables bit for bit equal to K3 (K4) over the
+                   source's, and within the plain version's tolerance;
+               8b. parity — phase 4's full-width 2-layer mistral-7b
+                   (float32, the same seeded weights) with 4 of the mix's
+                   prompts through the disaggregated router, paged batchers
+                   of 4 slots and blocks of 16: every request held and
+                   handed off, greedy tokens identical to solo generation
+                   and to one paged batcher with no handoff, on the kernel
+                   and on the plain path; queries booked at their prefill
+                   pool, decode tokens at their decode pool; every block
+                   returned on both ends;
+               8c. serve   — full mistral-7b (32 layers, bf16, random
+                   weights built anew from the seed) with phase 5's 8
+                   requests through the disaggregated router, 1024 blocks
+                   of 16 on both pools: every request handed off and done,
+                   K3 launched (its count on a line of its own), every
+                   block returned; the migrated bytes beside the pricing
+                   model's booked bytes, wall seconds and peak memory.
 
 Phases 5 and 6 run with no autotune cache installed.
 
 The line before the last is one JSON object with each kernel's numbers, one
 row per kernel and serving path: ``name@arch`` is the kernel on that model's
-path (plain ``name`` is mistral-7b's for K1-K4 — K4's launches from phase 7
-— and mamba2-130m's for K5),
+path (plain ``name`` is mistral-7b's for K1-K4 — K3's launches from phase
+5, K4's from phase 7 — and mamba2-130m's for K5),
 with that path's launches and its own shapes' times and errors; the
 last line is {"ok": true, "device": {...}}. Without a CUDA device, or
 without the repository beside this file, it exits non-zero and prints no
@@ -1213,25 +1243,31 @@ def phase_parity_ssm(torch):
 
 
 # --------------------------------------------------------------- phases 5, 6
+def _mix(cfg):
+    """The fixed serve mix: 8 (m, n) from sample_workload(8, seed), m and n
+    capped, with seeded random prompts of m tokens."""
+    import numpy as np
+    from repro_torch.core.workload import sample_workload
+    rng = np.random.default_rng(SEED)
+    work = [(min(q.m, M_CAP), min(q.n, N_CAP))
+            for q in sample_workload(8, seed=SEED)]
+    return work, [rng.integers(0, cfg.vocab_size, size=m) for m, _ in work]
+
+
 def _serve_mix(torch, cfg, engine, kernels, *, paged):
     """The fixed mix: 8 requests from sample_workload(8, seed) (m and n
     capped) behind FleetRouter(capacity_aware) over paper_fleet() with
     batchers (paged or dense, 4 slots), then the first 2 again through the
     engine-only path. Checks every output; returns each kernel's launches in
     the mix, counted from 0, and the wall seconds."""
-    import numpy as np
     from repro_torch.core.systems import paper_fleet
-    from repro_torch.core.workload import sample_workload
     from repro_torch.serving.router import FleetRouter
 
     eff, perf = paper_fleet()
     pools = {eff.name: eff, perf.name: perf}
     engines = {eff.name: engine, perf.name: engine}
     counts = {eff.name: 4, perf.name: 1}
-    rng = np.random.default_rng(SEED)
-    work = [(min(q.m, M_CAP), min(q.n, N_CAP))
-            for q in sample_workload(8, seed=SEED)]
-    prompts = [rng.integers(0, cfg.vocab_size, size=m) for m, _ in work]
+    work, prompts = _mix(cfg)
     work += work[:2]
     prompts += prompts[:2]
 
@@ -1378,6 +1414,346 @@ def phase_serve_ssm(torch, card):
     return out
 
 
+# --------------------------------------------------------------- phase 8
+def _probe_pair():
+    """The disaggregation probe pair of tests/test_disagg.py: a slow,
+    near-dark eff pool and a fast, high-idle perf pool joined by a 400 Gb/s
+    link. Priced with mistral-7b's config, the serve mix's requests split:
+    prefill on one pool, decode on the other."""
+    from repro_torch.core.systems import SystemProfile
+    eff = SystemProfile(name="eff", kind="eff", chips=1, peak_flops=5e12,
+                        hbm_bw=0.8e12, ici_bw=50e9, power_peak_w=120.0,
+                        power_idle_w=8.0, overhead_s=0.02, sat_ctx=2048.0,
+                        link_bw_gbps=400.0)
+    perf = SystemProfile(name="perf", kind="perf", chips=4,
+                         peak_flops=400e12, hbm_bw=1.25e12, ici_bw=100e9,
+                         power_peak_w=350.0, power_idle_w=100.0,
+                         overhead_s=0.0005, link_bw_gbps=400.0)
+    return eff, perf
+
+
+def _kv_pools(torch, gen, kind, shape):
+    """A paged cache's pools of ``shape`` (layers, blocks, Hkv, bs, D) on the
+    card with random contents: bf16 or float32, or int8 with float32 scale
+    pools in [0.005, 0.02). The script imports no test, so this and
+    ``_probe_pair`` are its own copies of tests/_torch_handoff.py's."""
+    if kind != "int8":
+        dt = getattr(torch, kind)
+        return {k: torch.randn(shape, generator=gen, device="cuda").to(dt)
+                for k in ("kp", "vp")}
+    out = {k: torch.randint(-127, 128, shape, generator=gen,
+                            device="cuda").to(torch.int8)
+           for k in ("kp", "vp")}
+    for k in ("kp_scale", "vp_scale"):
+        out[k] = torch.rand(shape[:-1] + (1,), generator=gen,
+                            device="cuda") * 0.015 + 0.005
+    return out
+
+
+def _eager_ms(torch, fn, reps=20):
+    """Mean time of ``reps`` eager calls between CUDA events, host launch
+    included (for work that copies host indices and cannot be captured)."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _check_migration(torch, gen, kind):
+    """Phase 8a for one pool type, on 2 layers of mistral-7b's pool geometry:
+    migrate the blocks of SERVE_KV_LEN's lanes (a ragged set, in random
+    order on both ends) between two pools, check the copy bit for bit and
+    the payload bytes, time it, then hold K3 (K4 for int8) over the
+    destination against K3 (K4) over the source, bit for bit, and against
+    the plain version. Returns the worst error against the plain version."""
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.serving.batching import migrate_kv_blocks
+    layers, bs, kv_len = 2, 16, SERVE_KV_LEN
+    nblk = [-(-n // bs) for n in kv_len]
+    total = sum(nblk)
+    num_blocks = total + 1 + total // 2        # room for untouched blocks
+    shape = (layers, num_blocks, HKV, bs, D)
+    src = _kv_pools(torch, gen, kind, shape)
+    dst = _kv_pools(torch, gen, kind, shape)
+    src_ids = (torch.randperm(num_blocks - 1, generator=gen, device="cuda")
+               + 1)[:total].tolist()
+    dst_ids = (torch.randperm(num_blocks - 1, generator=gen, device="cuda")
+               + 1)[:total].tolist()
+    mb = max(nblk) + 1
+    tables = {}
+    for name, ids in (("src", src_ids), ("dst", dst_ids)):
+        t = torch.zeros((len(kv_len), mb), dtype=torch.int32, device="cuda")
+        used = 0
+        for b, n in enumerate(nblk):
+            t[b, :n] = torch.tensor(ids[used:used + n], dtype=torch.int32)
+            used += n
+        tables[name] = t
+    src_before = {k: v.clone() for k, v in src.items()}
+    dst_before = {k: v.clone() for k, v in dst.items()}
+    out, moved = migrate_kv_blocks(src, src_ids, dst, dst_ids)
+    torch.cuda.synchronize()
+    others = torch.ones(num_blocks, dtype=torch.bool, device="cuda")
+    others[dst_ids] = False
+    copied = all(torch.equal(dst[k][:, dst_ids], src[k][:, src_ids])
+                 for k in src)
+    kept = all(torch.equal(src[k], src_before[k]) for k in src)
+    untouched = all(torch.equal(dst[k][:, others], dst_before[k][:, others])
+                    for k in src)
+    itemsize = src["kp"].element_size()
+    want = total * layers * HKV * bs * (2 * D * itemsize
+                                        + (2 * 4 if kind == "int8" else 0))
+    say(f"  8a {kind:8s} pools {tuple(shape)}: {total} blocks "
+        f"(lanes {nblk}) copied bit for bit {copied}, source unchanged "
+        f"{kept}, other blocks untouched {untouched}, payload {moved} B "
+        f"(expected {want})")
+    if not (out is dst and copied and kept and untouched and moved == want):
+        fail(f"phase 8a: migrate_kv_blocks on {kind} pools")
+    ms = _eager_ms(torch, lambda: migrate_kv_blocks(src, src_ids, dst,
+                                                    dst_ids))
+    say(f"  8a {kind:8s} migration: {ms:.4f} ms per call (eager, host "
+        f"launch included), {moved / ms / 1e6:.1f} GB/s of payload")
+    kvl = torch.tensor(kv_len, dtype=torch.int32, device="cuda")
+    q_types = (("float32", "bfloat16") if kind == "int8" else (kind,))
+    worst = 0.0
+    for layer in range(layers):
+        for qt in q_types:
+            q = torch.randn((len(kv_len), HQ, 1, D), generator=gen,
+                            device="cuda").to(getattr(torch, qt))
+            if kind == "int8":
+                args = {n: (c["kp"][layer], c["vp"][layer],
+                            c["kp_scale"][layer], c["vp_scale"][layer],
+                            tables[n]) for n, c in (("src", src),
+                                                    ("dst", dst))}
+                fn, ref, label = (DA.paged_decode_attention_int8,
+                                  DA.paged_decode_attention_int8_ref, "K4")
+            else:
+                args = {n: (c["kp"][layer], c["vp"][layer], tables[n])
+                        for n, c in (("src", src), ("dst", dst))}
+                fn, ref, label = (DA.paged_decode_attention,
+                                  DA.paged_decode_attention_ref, "K3")
+            a = fn(q, *args["dst"], kvl)
+            b = fn(q, *args["src"], kvl)
+            want_out = ref(q, *args["src"], kvl)
+            torch.cuda.synchronize()
+            same = torch.equal(a, b)
+            rows = (kvl > 0)[:, None, None].expand(len(kv_len), HQ, 1)
+            err, ok = _err_on_valid(torch, a, want_out, rows, TOL[qt])
+            say(f"  8a {label} over migrated {kind} pool, layer {layer}, "
+                f"q {qt}: equal to {label} over the source {same}, "
+                f"max_abs_err vs plain {err:.3e} "
+                f"{'ok' if same and ok else 'MISMATCH'}")
+            if not (same and ok):
+                fail(f"phase 8a: {label} over the migrated {kind} pool")
+            worst = max(worst, err)
+    return worst
+
+
+def _disagg_run(torch, cfg, engine, work, prompts, num_blocks, label):
+    """``prompts`` (budgets from ``work``) through
+    FleetRouter(policy="disaggregated") over the probe pair, priced with
+    mistral-7b's config, paged batchers of 4 slots and blocks of 16 on both
+    pools. Fails unless every request is held after submit, handed off,
+    done with its budget of tokens in the vocabulary, booked at its prefill
+    pool (the query and its prompt tokens) and at its decode pool (the
+    emitted tokens), and every block comes back. Each ``adopt_lane`` call
+    is timed on the host clock and between CUDA events on the device (the
+    span from the device reaching the call's first launch to its last).
+    Returns the routed requests, the payload bytes of each handoff, the
+    router, and the handoff calls' summed host and device milliseconds."""
+    from collections import Counter
+    from repro_torch.configs import get_config
+    from repro_torch.core.pricing import CostModel, CostParams
+    from repro_torch.serving.router import FleetRouter
+    eff, perf = _probe_pair()
+    router = FleetRouter(cfg, {"eff": eff, "perf": perf},
+                         {"eff": engine, "perf": engine},
+                         policy="disaggregated",
+                         model=CostModel(get_config("mistral-7b"), None,
+                                         CostParams(lam=1.0)))
+    router.attach_batchers(slots=4, paged=True, num_blocks=num_blocks,
+                           block_size=16)
+    moved, host_s, spans = [], [], []
+    for cb in router.batchers.values():
+        def adopt(req, src, src_i, _adopt=cb.adopt_lane):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            t = time.perf_counter()
+            start.record()
+            out = _adopt(req, src, src_i)
+            end.record()
+            host_s.append(time.perf_counter() - t)
+            spans.append((start, end))
+            if out is not None:
+                moved.append(out)
+            return out
+        cb.adopt_lane = adopt
+    routed = [router.submit(p, n) for p, (_, n) in zip(prompts, work)]
+    held = sum(bool(rr.request.hold) for rr in routed)
+    router.drain()
+    torch.cuda.synchronize()
+    host_ms = 1e3 * sum(host_s)
+    device_ms = sum(a.elapsed_time(b) for a, b in spans)
+    handed = sum(rr.request.done and not rr.request.hold for rr in routed)
+    say(f"  {label} held after submit {held}/{len(routed)}, handed off "
+        f"{len(moved)} in {len(spans)} adopt_lane calls (host "
+        f"{host_ms:.3f} ms, device span {device_ms:.3f} ms in all), "
+        f"pending handoffs after drain {len(router._handoffs)}")
+    if held != len(routed) or len(moved) != len(routed) or \
+            handed != len(routed) or router._handoffs:
+        fail(f"phase {label}: a request was not held and handed off")
+    for rr, (m, n) in zip(routed, work):
+        toks = rr.request.out_tokens
+        if len(toks) != n or not all(0 <= int(t) < cfg.vocab_size
+                                     for t in toks):
+            fail(f"phase {label} request {rr.rid}: {len(toks)} tokens for "
+                 f"a budget of {n}, or a token outside the vocabulary")
+    rep = router.fleet_report()
+    other = {"eff": "perf", "perf": "eff"}
+    queries = Counter(rr.pool for rr in routed)
+    tokens = Counter()                  # prompt tokens at the prefill pool,
+    for rr, (m, _) in zip(routed, work):    # emitted ones at the decode pool
+        tokens[rr.pool] += m
+        tokens[other[rr.pool]] += len(rr.request.out_tokens)
+    for pool, st in rep.items():
+        say(f"  {label} fleet_report {pool:5s} queries={st['queries']} "
+            f"tokens={st['tokens']} energy_j={st['energy_j']:.3f} "
+            f"runtime_s={st['runtime_s']:.4f}")
+        if st["queries"] != queries[pool] or st["tokens"] != tokens[pool]:
+            fail(f"phase {label}: fleet_report does not book queries at "
+                 f"their prefill pool and tokens at their decode pool")
+    for pool, cb in router.batchers.items():
+        back = cb.free_blocks == cb.total_blocks and not cb.queue and \
+            all(r is None for r in cb.active)
+        say(f"  {label} batcher {pool}: {cb.stats()} free+evictable="
+            f"{cb.free_blocks} of {cb.total_blocks}")
+        if not back:
+            fail(f"phase {label}: blocks or lanes not returned on {pool}")
+    return routed, moved, router, (host_ms, device_ms)
+
+
+def _block_bytes(cfg, kv_dtype_bytes, bs=16, scales=False):
+    return cfg.num_layers * cfg.num_kv_heads * bs * (
+        2 * cfg.resolved_head_dim * kv_dtype_bytes + (8 if scales else 0))
+
+
+def phase_disagg_migration(torch):
+    say("== phase 8a: KV block migration on the card, mistral-7b pool "
+        "geometry, 2 layers")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    worst = max(_check_migration(torch, gen, kind)
+                for kind in ("bfloat16", "float32", "int8"))
+    say(f"  migration ok: worst K3/K4 err vs plain {worst:.3e}")
+
+
+def phase_disagg_parity(torch):
+    """Phase 8b: the disaggregated router against solo generation and one
+    paged batcher, on the kernel and the plain path."""
+    say("== phase 8b: disaggregated parity, mistral-7b full width, 2 layers, "
+        "float32")
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.serving.batching import PagedContinuousBatcher, Request
+    from repro_torch.serving.engine import InferenceEngine
+    cfg = dataclasses.replace(get_config("mistral-7b"), num_layers=2)
+    # phase 4's weights (the same seed), with the serving context
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    params = M.init_params(cfg, gen, torch.float32, "cuda")
+    work, prompts = _mix(cfg)
+    work, prompts = work[:4], prompts[:4]
+    tokens = {}
+    for b in ("auto", "ref"):
+        eng = InferenceEngine(cfg, params, max_len=MAX_LEN, backend=b,
+                              device="cuda")
+        routed, moved, _, _ = _disagg_run(torch, cfg, eng, work, prompts,
+                                          256, label=f"8b {b}")
+        got = [list(map(int, rr.request.out_tokens)) for rr in routed]
+        solo = [list(map(int, eng.generate(
+            {"tokens": torch.from_numpy(p.astype("int32"))[None].cuda()},
+            n).tokens[0])) for p, (_, n) in zip(prompts, work)]
+        cb = PagedContinuousBatcher(eng, slots=4, num_blocks=256,
+                                    block_size=16)
+        reqs = [Request(i, p, n) for i, (p, (_, n)) in
+                enumerate(zip(prompts, work))]
+        for r in reqs:
+            cb.submit(r)
+        cb.run()
+        one = [list(map(int, r.out_tokens)) for r in reqs]
+        want = [-(-len(p) // 16) * _block_bytes(cfg, 4) for p in prompts]
+        say(f"  8b {b}: tokens {got}; equal to solo generation "
+            f"{got == solo}, to one paged batcher {got == one}; payload "
+            f"{sum(moved)} B (expected {sum(want)})")
+        if got != solo or got != one or sorted(moved) != sorted(want):
+            fail(f"phase 8b: disaggregated tokens or payload differ ({b})")
+        tokens[b] = got
+    if tokens["auto"] != tokens["ref"]:
+        fail("phase 8b: kernel path tokens differ from the plain path")
+    del params
+    torch.cuda.empty_cache()
+
+
+def phase_disagg_serve(torch, card):
+    """Phase 8c: full mistral-7b, phase 5's 8 requests through the
+    disaggregated router. Returns K3's launches in the run."""
+    say("== phase 8c: serve mistral-7b (32 layers, bf16) disaggregated "
+        "through FleetRouter")
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models import model as M
+    from repro_torch.serving.engine import InferenceEngine
+    cfg = get_config("mistral-7b")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    params = M.init_params(cfg, gen, torch.bfloat16, "cuda")
+    say(f"  weights: {M.param_count(params) / 1e9:.3f}B params bf16, "
+        f"{cfg.num_layers} layers, built anew from the seed in "
+        f"{time.perf_counter() - t0:.2f} s")
+    engine = InferenceEngine(cfg, params, max_len=MAX_LEN,
+                             dtype=torch.bfloat16, device="cuda")
+    work, prompts = _mix(cfg)
+    kernels = (FA.flash_attention, DA.decode_attention,
+               DA.paged_decode_attention, DA.paged_decode_attention_int8)
+    for fn in kernels:
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    routed, moved, router, (host_ms, device_ms) = _disagg_run(
+        torch, cfg, engine, work, prompts, 1024, label="8c")
+    wall = time.perf_counter() - t1
+    launches = {fn.__name__: fn.launches for fn in kernels}
+    for rr, (m, n) in zip(routed, work):
+        say(f"  req{rr.rid:3d} m={m:4d} n={n:3d} prefill {rr.pool} -> "
+            f"decode {'eff' if rr.pool == 'perf' else 'perf'} "
+            f"tokens[:8]={[int(t) for t in rr.request.out_tokens[:8]]}")
+    booked = sum(router.model.migration_bytes(m, block_size=16)
+                 for m, _ in work)
+    want = sum(-(-m // 16) for m, _ in work) * _block_bytes(cfg, 2)
+    say(f"  8c handoffs={len(moved)} migrated_bytes={sum(moved)} (counted "
+        f"{want}) booked_bytes={booked:.0f} (CostModel.migration_bytes, "
+        f"4 bytes per value: information only)")
+    say(f"  8c handoff time in this run: host {host_ms:.3f} ms "
+        f"({host_ms / 10 / wall:.4f}% of the wall), device span "
+        f"{device_ms:.3f} ms ({device_ms / 10 / wall:.4f}% of the wall)")
+    say(f"  8c launches in this run: {json.dumps(launches)}")
+    if sum(moved) != want:
+        fail("phase 8c: migrated bytes differ from the blocks' bytes")
+    if launches["paged_decode_attention"] == 0:
+        fail("phase 8c: K3 never launched on the decode pool")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    say(f"  mistral-7b disaggregated serve wall_s={wall:.3f} "
+        f"max_memory_allocated_gb={peak:.3f} card={card}")
+    del params, engine, router
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> None:
     if not (ROOT / "src" / "repro_torch" / "kernels").is_dir():
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it from "
@@ -1400,6 +1776,9 @@ def main() -> None:
     int8 = phase_serve_int8(torch, card, bf16_tokens)
     launches["paged_decode_attention_int8"] = \
         int8["paged_decode_attention_int8"]
+    phase_disagg_migration(torch)
+    phase_disagg_parity(torch)
+    phase_disagg_serve(torch, card)
 
     sources = {"flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                                    "src/repro/kernels/flash_attention.py:98"),

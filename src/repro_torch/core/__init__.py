@@ -2,8 +2,10 @@
 heterogeneous fleet for energy-efficient LLM inference.
 
 Copies of the reference package's numpy-only modules with only their imports
-rewritten, so prices and dispatch decisions stay bit-for-bit equal. The
-fleet simulators, regions and the carbon extension are not ported."""
+rewritten, so prices, dispatch decisions and the simulators' results stay
+bit-for-bit equal: pricing and scheduling, the static simulator and the
+paper's headline (``simulator``), the event and vectorized fleet engines
+(``fleet``, ``fleet_vec``), the carbon extension and the region layer."""
 from repro_torch.core.systems import (SystemProfile, PROFILES, get_profile,
                                       paper_fleet, tpu_fleet, PowerState,
                                       PowerStateTable, default_power_states)
@@ -32,3 +34,15 @@ from repro_torch.core.scheduler import (Scheduler, ThresholdScheduler,
                                         SingleSystemScheduler,
                                         RoundRobinScheduler, Assignment,
                                         FleetState, PoolSnapshot)
+from repro_torch.core.simulator import (simulate, summarize, threshold_sweep,
+                                        optimal_threshold, headline, SimResult,
+                                        SweepPoint, HeadlineResult)
+from repro_torch.core.fleet import (FLEET_ENGINES, FleetSimulator,
+                                    FleetSimResult, PoolSpec, RequestRecord,
+                                    PoolResult, simulate_fleet,
+                                    AutoscalerPolicy,
+                                    TargetUtilizationAutoscaler,
+                                    QueueDepthAutoscaler)
+from repro_torch.core.fleet_vec import VectorizedFleetSimulator
+from repro_torch.core.region import (Region, RegionLink, PriceProfile,
+                                     flatten_regions, GlobalDispatcher)

@@ -34,8 +34,8 @@ import json
 import math
 from collections import OrderedDict
 from dataclasses import asdict, dataclass, replace
-from typing import (Dict, Iterable, List, Optional, Protocol, Sequence, Tuple,
-                    runtime_checkable)
+from typing import (TYPE_CHECKING, Dict, Iterable, List, Optional, Protocol,
+                    Sequence, Tuple, runtime_checkable)
 
 import numpy as np
 
@@ -44,9 +44,8 @@ from repro_torch.core.perf_model import (BatchPhases, QueryPhases, query_phases,
                                          query_phases_batch)
 from repro_torch.core.systems import SystemProfile
 
-# The carbon extension is not ported: ``CostModel(carbon=...)`` still takes
-# any object with ``intensity``/``mean_g_per_kwh``/``grams`` (the reference
-# package's ``CarbonProfile``), named in annotations as a string only.
+if TYPE_CHECKING:   # avoid a runtime cycle: carbon imports pricing
+    from repro_torch.core.carbon import CarbonProfile
 
 
 @dataclass(frozen=True)

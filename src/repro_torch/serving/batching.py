@@ -13,8 +13,12 @@
 Both keep one batched host sync per tick: the tokens a tick emits come to
 the host together, while the next tick's input stays on the device.
 Host-to-device copies go through pinned memory without a stream sync.
-KV handoff between pools (``adopt_lane``, ``release_lane``,
-``migrate_kv_blocks``) waits for the next slice of the port.
+
+KV handoff between two paged pools (disaggregated prefill and decode): a
+held request (``Request.hold``) prefills on one batcher and never decodes
+there; ``adopt_lane`` on another copies its prompt blocks across with
+``migrate_kv_blocks`` (on the pools' device, no host round trip) and seats
+it in a free lane; the source then frees its lane with ``release_lane``.
 """
 from __future__ import annotations
 
@@ -37,6 +41,7 @@ class Request:
     out_tokens: List[int] = field(default_factory=list)
     done: bool = False
     eos_id: Optional[int] = None    # stop early when this token is emitted
+    hold: bool = False              # prefill only; decode waits for a handoff
 
 
 def _to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -418,9 +423,13 @@ class PagedContinuousBatcher(_BatcherBase):
 
     # -------------------------------------------------------------- decode
     def _decode_lanes(self) -> List[int]:
-        """Lanes with complete prompts."""
+        """Lanes with complete prompts, excluding held ones: a held request
+        has prefilled here but decodes elsewhere — its first token (seeded by
+        the final prefill chunk) waits in ``out_tokens`` until ``adopt_lane``
+        moves the KV to the decode pool."""
         return [i for i, r in enumerate(self.active)
-                if r is not None and self._lane[i].prefilled >= len(r.tokens)]
+                if r is not None and not r.hold
+                and self._lane[i].prefilled >= len(r.tokens)]
 
     def step(self) -> None:
         """One tick: admit, one prefill chunk per filling lane, one batched
@@ -439,15 +448,80 @@ class PagedContinuousBatcher(_BatcherBase):
         self._emit(logits, live)
 
     def _retire(self, i: int) -> None:
-        """Complete lane ``i``: drop its owned block refs (prefix-shared
-        blocks stay pinned) and null its device row."""
-        lane = self._lane[i]
         self.active[i].done = True
+        self.release_lane(i)
+
+    def release_lane(self, i: int) -> None:
+        """Free lane ``i`` without completing its request: drop the owned
+        block refs (prefix-shared blocks stay pinned) and null the device
+        row. ``_retire`` is release + done; a disaggregated handoff releases
+        the prefill-side lane after ``adopt_lane`` copied its blocks out,
+        leaving the request alive on the decode pool."""
+        lane = self._lane[i]
         self.active[i] = None
         self._lane[i] = None
-        self.allocator.decref(lane.blocks)
+        self.allocator.decref(lane.blocks)        # shared blocks stay pinned
         self.cache["block_tables"][i] = NULL_BLOCK        # in place
         self.cache["pos"][i] = 0                          # in place
+
+    # ------------------------------------------------------------- handoff
+    def adopt_lane(self, req: Request, src: "PagedContinuousBatcher",
+                   src_i: int) -> Optional[int]:
+        """Resume a held request here: copy its prefilled KV blocks from
+        ``src`` and seat it in a free decode lane.
+
+        The request must have finished prefill on ``src`` (its first output
+        token, seeded by the final prefill chunk, is in ``out_tokens``; the
+        source lane's KV therefore holds exactly the ``m`` prompt tokens —
+        the held lane never entered decode). Blocks are copied, not stolen:
+        prefix-shared source blocks keep serving the source pool, and the
+        caller releases the source lane afterwards (``src.release_lane``).
+
+        Returns the KV payload bytes moved, or ``None`` when no free lane or
+        not enough free blocks exist yet — the caller retries next tick, so
+        a migration racing admission on a block-starved target degrades to
+        waiting, never to a partial copy.
+        """
+        lane_src = src._lane[src_i]
+        if src.active[src_i] is not req or not req.out_tokens or \
+                lane_src.prefilled < len(req.tokens):
+            raise ValueError(f"request {req.rid}: adopt_lane before its "
+                             f"prefill completed on the source pool")
+        if self.block_size != src.block_size:
+            raise ValueError(
+                f"KV migration needs equal block sizes "
+                f"(src {src.block_size}, dst {self.block_size})")
+        slot = next((i for i, r in enumerate(self.active) if r is None), None)
+        if slot is None:
+            return None
+        ctx = len(req.tokens)                 # prompt only; see docstring
+        need = self._blocks_needed(req)       # worst-case full-context hold
+        if self.prefix is not None:
+            self.prefix.evict(need)
+        fresh = self.allocator.alloc(need)
+        if fresh is None:                     # block-starved: retry next tick
+            return None
+        n_copy = kv_blocks_needed(ctx, self.block_size)
+        self.cache, moved = migrate_kv_blocks(
+            src.cache, lane_src.blocks[:n_copy], self.cache, fresh[:n_copy])
+        self.active[slot] = req
+        # migrated blocks are private copies — nothing registered for
+        # sharing; the lane enters complete (prefilled == m), so
+        # ``_prefill_tick`` never reads its prompt: an empty one stands in
+        self._lane[slot] = _LaneState(
+            blocks=fresh, prefilled=ctx, registered=0,
+            prompt_dev=torch.zeros((0,), dtype=torch.int32,
+                                   device=self.device))
+        row = np.full((self.cache["block_tables"].shape[1],), NULL_BLOCK,
+                      np.int32)
+        row[:len(fresh)] = fresh
+        self.cache["block_tables"][slot] = _to_device(row, self.device)  # in place
+        self.cache["pos"][slot] = ctx                                     # in place
+        # the first token is already on the host: a host-to-device write,
+        # no read back
+        self._last_tok[slot] = req.out_tokens[-1]
+        req.hold = False
+        return moved
 
     def stats(self) -> Dict[str, int]:
         return {
@@ -460,6 +534,60 @@ class PagedContinuousBatcher(_BatcherBase):
 
 
 # --------------------------------------------------------------------- lane ops
+# Paged-pool tensors subject to KV migration: the K/V block pools and, when
+# the cache is int8-quantized, their per-row scale pools. ``pos`` and
+# ``block_tables`` are per-lane (not per-block) and stay host-managed.
+_KV_POOL_KEYS = ("kp", "vp", "kp_scale", "vp_scale")
+
+
+def migrate_kv_blocks(src_cache: Dict, src_blocks: List[int],
+                      dst_cache: Dict, dst_blocks: List[int]) -> Tuple[Dict, int]:
+    """Device-side KV-block migration between two paged pools.
+
+    Gathers ``src_blocks`` along the pool axis (axis 1 of every
+    ``(layers, num_blocks, Hkv, block_size, hd)`` pool tensor) of
+    ``src_cache`` with ``index_select`` and writes them into ``dst_blocks``
+    of ``dst_cache`` with ``index_copy_``, in place, on the pools' own
+    device — the serving realisation of the bytes the pricing model charges
+    via ``CostModel.migration_terms``. The source pool is read, never
+    written (copy, not steal), so blocks shared through a
+    ``PrefixBlockCache`` keep serving the source pool. Returns
+    ``(dst_cache, payload_bytes)`` where payload_bytes counts the K/V
+    (+scale) bytes moved once.
+    """
+    if len(src_blocks) != len(dst_blocks):
+        raise ValueError(f"block list length mismatch: {len(src_blocks)} "
+                         f"source vs {len(dst_blocks)} destination")
+    if not src_blocks:
+        return dst_cache, 0
+    pairs = []
+    for k in _KV_POOL_KEYS:
+        if k not in src_cache:
+            continue
+        sv, dv = src_cache[k], dst_cache.get(k)
+        if dv is None or sv.shape[:1] + sv.shape[2:] != dv.shape[:1] + dv.shape[2:] \
+                or sv.dtype != dv.dtype:
+            raise ValueError(
+                f"pool geometry mismatch on {k!r}: migration needs the same "
+                f"model/block_size/dtype on both ends")
+        if sv.device != dv.device:
+            raise ValueError(
+                f"pools on two devices ({sv.device}, {dv.device}) on {k!r}: "
+                f"migration copies on one device")
+        pairs.append((sv, dv))
+    if not pairs:
+        return dst_cache, 0
+    device = pairs[0][0].device
+    src_ids = _to_device(np.asarray(src_blocks, np.int64), device)
+    dst_ids = _to_device(np.asarray(dst_blocks, np.int64), device)
+    moved = 0
+    for sv, dv in pairs:
+        payload = sv.index_select(1, src_ids)
+        dv.index_copy_(1, dst_ids, payload)
+        moved += payload.numel() * payload.element_size()
+    return dst_cache, moved
+
+
 # Cache keys whose leading axis is the batch; every other dense-cache tensor
 # is layer-leading with the batch at axis 1. Explicit metadata, not a shape
 # heuristic (a heuristic misreads batch-leading tensors when slots == 1).

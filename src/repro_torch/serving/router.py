@@ -15,10 +15,12 @@ Execution backends per pool:
   * batcher — a ``ContinuousBatcher`` or ``PagedContinuousBatcher``:
     requests queue, ``drain()`` runs all pools' loops to completion.
 
-``policy="disaggregated"`` (prefill on one pool, KV handoff, decode on
-another) is not ported yet: it raises (ROADMAP Queue 1 item 5b). The three
-ported policies place every request with a ``RunPlan`` on one pool, so the
-split and defer plans of ``core.plan`` do not reach this router yet.
+A ``DeferPlan`` runs its inner plan at once (live serving cannot time-shift
+a request). Under ``policy="disaggregated"`` a ``SplitPlan`` prefills on one
+pool and decodes on another: when both are paged batchers with equal block
+sizes the request is held after prefill and ``drain()`` hands its KV blocks
+to the decode pool (``adopt_lane``); otherwise it runs wholly on the prefill
+pool and keeps the split booking.
 """
 from __future__ import annotations
 
@@ -29,12 +31,15 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.plan import DeferPlan, SplitPlan
 from repro_torch.core.pricing import CostModel, CostParams, PerfOracle
 from repro_torch.core.scheduler import (CapacityAwareScheduler,
-                                        CostOptimalScheduler, FleetState,
+                                        CostOptimalScheduler,
+                                        DisaggregatedScheduler, FleetState,
                                         PoolSnapshot, Scheduler,
                                         ThresholdScheduler)
-from repro_torch.core.settlement import (reconcile_deltas, resolve_plan,
+from repro_torch.core.settlement import (reconcile_deltas,
+                                         reconcile_split_deltas, resolve_plan,
                                          route_bookings)
 from repro_torch.core.systems import SystemProfile
 from repro_torch.core.workload import Query
@@ -42,7 +47,7 @@ from repro_torch.serving.batching import (ContinuousBatcher,
                                           PagedContinuousBatcher, Request)
 from repro_torch.serving.engine import InferenceEngine
 
-POLICIES = ("threshold", "cost_optimal", "capacity_aware")
+POLICIES = ("threshold", "cost_optimal", "capacity_aware", "disaggregated")
 
 
 @dataclass
@@ -105,10 +110,7 @@ class FleetRouter:
             self.scheduler = CapacityAwareScheduler(cfg, systems, self.counts,
                                                     model=model)
         elif policy == "disaggregated":
-            raise NotImplementedError(
-                "policy='disaggregated' (KV handoff between pools: adopt_lane, "
-                "release_lane, migrate_kv_blocks) is not ported yet; see "
-                "ROADMAP Queue 1 item 5b")
+            self.scheduler = DisaggregatedScheduler(cfg, systems, model=model)
         else:
             raise ValueError(f"policy {policy!r} not in {POLICIES}")
         self._name_of = {s.name: n for n, s in pools.items()}
@@ -119,8 +121,13 @@ class FleetRouter:
                              "by name")
         self._rid = 0
         # batcher-executed requests awaiting actual-token reconciliation:
-        # (pool, m, expected_n, Request)
+        # (pool, m, expected_n, Request, decode-pool-or-None)
         self._pending: List[tuple] = []
+        # decode pool chosen by the most recent route() when it picked a
+        # split plan, else None — submit() reads it to arm the handoff
+        self._last_split: Optional[str] = None
+        # rid -> (prefill pool, decode pool, Request) awaiting KV handoff
+        self._handoffs: Dict[int, tuple] = {}
 
     # ------------------------------------------------------------- batchers
     def attach_batchers(self, slots: int = 4, *, paged: bool = False,
@@ -203,7 +210,21 @@ class FleetRouter:
             fleet = self._fleet_state(arrival_s)
         plan = resolve_plan(self.scheduler.dispatch(q, fleet), q, self._name_of)
         self.scheduler.observe(q, plan)
-        for b in route_bookings(self.model, plan, q, self._system_of):
+        self._last_split = None
+        if isinstance(plan, DeferPlan):
+            # live serving cannot time-shift a request: the inner placement
+            # runs at once (the defer window is a simulation / global
+            # dispatch concern)
+            plan = plan.inner
+        if isinstance(plan, SplitPlan):
+            name_a = self._name_of[plan.pool_prefill]
+            self._last_split = self._name_of[plan.pool_decode]
+            bs = getattr(self.batchers.get(name_a), "block_size", 0)
+        else:
+            name_a = self._name_of[plan.pool]
+            bs = 0
+        for b in route_bookings(self.model, plan, q, self._system_of,
+                                block_size=bs):
             st = self.stats[self._name_of[b.pool]]
             st.queries += b.queries
             st.energy_j += b.energy_j
@@ -212,7 +233,24 @@ class FleetRouter:
             st.expected_energy_j += b.energy_j
             st.expected_runtime_s += b.runtime_s
             st.expected_tokens += b.tokens
-        return self._name_of[plan.pool]
+        return name_a
+
+    def _reconcile_split(self, name_a: str, name_b: str, m: int,
+                         expected_n: int, actual_n: int) -> None:
+        """Split-plan analogue of ``_reconcile``: re-book each phase term on
+        its own pool at the emitted token count. Migration depends only on
+        ``m`` and needs no adjustment."""
+        if actual_n == expected_n:
+            return
+        (da_e, da_r), (db_e, db_r), dn = reconcile_split_deltas(
+            self.model, m, expected_n, actual_n,
+            self.pools[name_a], self.pools[name_b])
+        st_a, st_b = self.stats[name_a], self.stats[name_b]
+        st_a.energy_j += da_e
+        st_a.runtime_s += da_r
+        st_b.energy_j += db_e
+        st_b.runtime_s += db_r
+        st_b.tokens += dn
 
     def _reconcile(self, name: str, m: int, expected_n: int,
                    actual_n: int) -> None:
@@ -234,15 +272,34 @@ class FleetRouter:
 
         With a batcher attached to the pool the request is queued (call
         ``drain()`` to run the loops); otherwise, with an engine, it
-        generates immediately."""
+        generates immediately. A split plan between two paged batchers of
+        equal block size arms the KV handoff: the request is held after
+        prefill and ``drain()`` moves it to the decode pool."""
         self._rid += 1
         name = self.route(len(tokens), max_new_tokens, arrival_s)
+        split_to = self._last_split
         out, req = None, None
         if name in self.batchers:
             req = Request(self._rid, np.asarray(tokens), max_new_tokens,
                           eos_id=eos_id)
-            self.batchers[name].submit(req)
-            self._pending.append((name, len(tokens), max_new_tokens, req))
+            src, dst = self.batchers[name], self.batchers.get(split_to)
+            if (split_to is not None
+                    and isinstance(src, PagedContinuousBatcher)
+                    and isinstance(dst, PagedContinuousBatcher)
+                    and src.block_size == dst.block_size):
+                # live handoff: prefill on `name`, hold, then adopt_lane
+                # migrates the KV blocks to `split_to` during drain()
+                req.hold = True
+                self._handoffs[self._rid] = (name, split_to, req)
+            else:
+                # split plan priced and booked but not executable on these
+                # backends (dense batcher or block-size mismatch): the
+                # request runs wholly on the prefill pool, the booking keeps
+                # the priced plan
+                split_to = None
+            src.submit(req)
+            self._pending.append((name, len(tokens), max_new_tokens, req,
+                                  split_to))
         elif name in self.engines:
             eng = self.engines[name]
             prompt = torch.as_tensor(np.asarray(tokens), dtype=torch.int32,
@@ -250,7 +307,11 @@ class FleetRouter:
             res = eng.generate({"tokens": prompt}, max_new_tokens,
                                eos_id=eos_id)
             out = res.tokens[0]
-            self._reconcile(name, len(tokens), max_new_tokens, len(out))
+            if split_to is not None:
+                self._reconcile_split(name, split_to, len(tokens),
+                                      max_new_tokens, len(out))
+            else:
+                self._reconcile(name, len(tokens), max_new_tokens, len(out))
         sysp = self.pools[name]
         return RoutedRequest(self._rid, name,
                              self.model.energy(len(tokens), max_new_tokens, sysp),
@@ -259,13 +320,65 @@ class FleetRouter:
 
     def drain(self, max_ticks: int = 10_000) -> None:
         """Run every pool's continuous-batching loop until all requests are
-        done, then reconcile PoolStats against the tokens actually emitted."""
-        for cb in self.batchers.values():
-            cb.run(max_ticks)
-        for name, m, expected_n, req in self._pending:
+        done, then reconcile PoolStats against the tokens actually emitted.
+
+        With handoffs pending the pools are ticked in lock-step so a held
+        request can finish prefill on one pool and resume decode on another
+        mid-drain; without any, each pool just runs to completion."""
+        if self._handoffs:
+            ticks = 0
+            while ticks < max_ticks and (
+                    self._handoffs
+                    or any(cb.busy for cb in self.batchers.values())):
+                for cb in self.batchers.values():
+                    if cb.busy:
+                        cb.step()
+                if self._handoffs:
+                    self._do_handoffs()
+                ticks += 1
+        else:
+            for cb in self.batchers.values():
+                cb.run(max_ticks)
+        for name, m, expected_n, req, split_to in self._pending:
             if req.done:
-                self._reconcile(name, m, expected_n, len(req.out_tokens))
+                if split_to is None:
+                    self._reconcile(name, m, expected_n, len(req.out_tokens))
+                else:
+                    self._reconcile_split(name, split_to, m, expected_n,
+                                          len(req.out_tokens))
         self._pending = [p for p in self._pending if not p[3].done]
+
+    def _do_handoffs(self) -> None:
+        """Adopt every held request whose prefill has finished: the decode
+        pool copies its KV blocks (``adopt_lane``) and the prefill-side lane
+        is released. A lane-starved or block-starved decode pool leaves the
+        handoff pending — retried next tick, after its own retirements have
+        freed capacity."""
+        remaining: Dict[int, tuple] = {}
+        for rid, (src_name, dst_name, req) in self._handoffs.items():
+            src = self.batchers[src_name]
+            if req.done:
+                # EOS on the very first token, mid-prefill: nothing decodes
+                # and the booked migration never happens — undo it in the
+                # execution-faithful totals (expected_* keeps the plan)
+                bs = getattr(src, "block_size", 0)
+                _, mig_s, mig_j = self.model.migration_terms(
+                    len(req.tokens), self.pools[src_name],
+                    self.pools[dst_name], block_size=bs)
+                self.stats[src_name].energy_j -= mig_j
+                self.stats[src_name].runtime_s -= mig_s
+                continue
+            src_i = next((i for i, r in enumerate(src.active) if r is req),
+                         None)
+            if src_i is None or not req.out_tokens or \
+                    src._lane[src_i].prefilled < len(req.tokens):
+                remaining[rid] = (src_name, dst_name, req)   # still prefilling
+                continue
+            if self.batchers[dst_name].adopt_lane(req, src, src_i) is None:
+                remaining[rid] = (src_name, dst_name, req)   # target starved
+                continue
+            src.release_lane(src_i)
+        self._handoffs = remaining
 
     def fleet_report(self) -> Dict[str, Dict]:
         return {n: vars(s) for n, s in self.stats.items()}

@@ -16,6 +16,8 @@ from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import ref
 from repro_torch.kernels import ssm_scan as SS
 
+from _torch_handoff import kv_pools, probe_pair
+
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 
 
@@ -720,3 +722,111 @@ def test_int8_paged_decode_refuses_a_split_it_does_not_take():
         with pytest.raises(ValueError, match="block_k"):
             DA.paged_decode_attention_int8(*inp, block_k=bk)
     assert DA.paged_decode_attention_int8.launches == before
+
+
+# ---------------------------------------------------------- KV handoff
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["bfloat16", "float32", "int8"])
+def test_migrated_blocks_read_like_the_source_on_card(kind):
+    """``migrate_kv_blocks`` on the card: a ragged set of blocks in random
+    order copied bit for bit, the source unchanged, the other destination
+    blocks untouched; K3 (K4 for int8) over the destination pool and tables
+    equal, bit for bit, to K3 (K4) over the source's, and within the plain
+    version's tolerance."""
+    _need_card()
+    from repro_torch.serving.batching import migrate_kv_blocks
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    layers, hq, hkv, bs, d = 2, 8, 2, 8, 64
+    kv_len = [1, 17, 40, 77]
+    nblk = [-(-n // bs) for n in kv_len]
+    total = sum(nblk)
+    nb = 2 * total
+    shape = (layers, nb, hkv, bs, d)
+    src, dst = (kv_pools(gen, kind, shape, "cuda") for _ in range(2))
+    ids = {n: ((torch.randperm(nb - 1, generator=gen, device="cuda") + 1)
+               [:total].tolist()) for n in ("src", "dst")}
+    tables = {}
+    for n in ids:
+        t = torch.zeros((len(kv_len), max(nblk)), dtype=torch.int32,
+                        device="cuda")
+        used = 0
+        for b, k in enumerate(nblk):
+            t[b, :k] = torch.tensor(ids[n][used:used + k], dtype=torch.int32)
+            used += k
+        tables[n] = t
+    src_before = {k: v.clone() for k, v in src.items()}
+    dst_before = {k: v.clone() for k, v in dst.items()}
+    out, moved = migrate_kv_blocks(src, ids["src"], dst, ids["dst"])
+    assert out is dst
+    others = torch.ones(nb, dtype=torch.bool, device="cuda")
+    others[ids["dst"]] = False
+    for k in src:
+        assert torch.equal(dst[k][:, ids["dst"]], src[k][:, ids["src"]])
+        assert torch.equal(src[k], src_before[k])
+        assert torch.equal(dst[k][:, others], dst_before[k][:, others])
+    item = src["kp"].element_size()
+    assert moved == total * layers * hkv * bs * (
+        2 * d * item + (8 if kind == "int8" else 0))
+    kvl = torch.tensor(kv_len, dtype=torch.int32, device="cuda")
+    qts = (torch.float32, torch.bfloat16) if kind == "int8" \
+        else (getattr(torch, kind),)
+    for layer in range(layers):
+        for qt in qts:
+            q = _randn(gen, (len(kv_len), hq, 1, d), qt)
+            if kind == "int8":
+                a, b = ((c["kp"][layer], c["vp"][layer], c["kp_scale"][layer],
+                         c["vp_scale"][layer], tables[n])
+                        for n, c in (("dst", dst), ("src", src)))
+                fn, ref = (DA.paged_decode_attention_int8,
+                           DA.paged_decode_attention_int8_ref)
+            else:
+                a, b = ((c["kp"][layer], c["vp"][layer], tables[n])
+                        for n, c in (("dst", dst), ("src", src)))
+                fn, ref = DA.paged_decode_attention, \
+                    DA.paged_decode_attention_ref
+            got = fn(q, *a, kvl)
+            assert torch.equal(got, fn(q, *b, kvl))
+            torch.testing.assert_close(got, ref(q, *b, kvl), atol=TOL[qt],
+                                       rtol=TOL[qt])
+
+
+@pytest.mark.gpu
+def test_disaggregated_router_on_card():
+    """Reduced smollm-360m on the card behind
+    ``FleetRouter(policy="disaggregated")`` over the probe pool pair: every
+    request held, its KV migrated between the paged pools on the card, K3
+    launched on the decode pool, greedy tokens equal to solo generation,
+    every block returned."""
+    _need_card()
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core.pricing import CostModel, CostParams
+    from repro_torch.core.systems import SystemProfile
+    from repro_torch.models import model as M
+    from repro_torch.serving.engine import InferenceEngine
+    from repro_torch.serving.router import FleetRouter
+    cfg = get_config("smollm-360m").reduced()
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    eng = InferenceEngine(cfg, M.init_params(cfg, gen, torch.float32, "cuda"),
+                          max_len=96, device="cuda")
+    eff, perf = probe_pair(SystemProfile)
+    router = FleetRouter(cfg, {"eff": eff, "perf": perf},
+                         {"eff": eng, "perf": eng}, policy="disaggregated",
+                         model=CostModel(get_config("smollm-360m"), None,
+                                         CostParams(lam=1.0)))
+    router.attach_batchers(slots=2, paged=True, num_blocks=48, block_size=8,
+                           chunk=8)
+    prompts = [np.arange(40 + 7 * i) % cfg.vocab_size for i in range(3)]
+    before = DA.paged_decode_attention.launches
+    routed = [router.submit(p, 6) for p in prompts]
+    assert all(rr.request.hold for rr in routed)
+    router.drain()
+    assert not router._handoffs
+    assert DA.paged_decode_attention.launches > before
+    for rr, p in zip(routed, prompts):
+        assert rr.request.done and not rr.request.hold
+        solo = eng.generate({"tokens": torch.as_tensor(
+            p, dtype=torch.int32, device="cuda")[None]}, 6)
+        assert rr.request.out_tokens == list(solo.tokens[0])
+    for cb in router.batchers.values():
+        assert cb.free_blocks == cb.total_blocks

@@ -146,14 +146,6 @@ def test_router_fleet_report_matches_jax(engines, policy, paged):
         assert ta == tb
 
 
-def test_router_disaggregated_is_not_ported(engines):
-    _, teng = engines
-    eff, perf = paper_fleet()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        FleetRouter(teng.cfg, {"eff": eff, "perf": perf},
-                    policy="disaggregated")
-
-
 # ------------------------------------------------------------------ hygiene
 def _port_files():
     return sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
@@ -180,7 +172,10 @@ def test_port_imports_neither_jax_nor_the_reference_package():
 
 def test_importing_the_port_loads_no_jax():
     code = ("import sys; import repro_torch, repro_torch.kernels.ops, "
-            "repro_torch.serving.router, repro_torch.launch.serve; "
+            "repro_torch.serving.router, repro_torch.launch.serve, "
+            "repro_torch.core, repro_torch.core.simulator, "
+            "repro_torch.core.fleet, repro_torch.core.fleet_vec, "
+            "repro_torch.core.carbon, repro_torch.core.region; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'repro')))")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
