@@ -38,11 +38,18 @@ Phases, each printing its own lines; any failure exits non-zero:
                2e-5, bf16 2e-2) and against the gather oracle (f32 3e-5),
                at kv_len 0 and on both sides of a split edge for block_k
                32/64/128, G = 4 and 1, a window of 71 and a softcap, and
-               captured into a CUDA graph; then each timed at each serving
-               path's shapes beside the plain version, one PyTorch library
-               call where one computes the same function, and the card's
-               bound (K4 also beside the gather composition; K1 by tile,
-               K2, K3 and K4 by block_k, K5 by pass);
+               captured into a CUDA graph; then the new families' shapes:
+               K1 non-causal at whisper-base's encoder (8 heads, D 64,
+               Sq = Sk = 1500 and a ragged 300, every bf16 tile) and cross
+               prefill (Sq 24 on Sk 1500), K1 at qwen2-vl-7b's G = 7 (28 on
+               4 heads, D 128, Sq = Sk = 768) and phi3.5-moe's prefill, K2
+               at G = 7 and at G = 1 / D 64 on both sides of a split edge
+               (block_k 32/64/128), K3 at phi3.5-moe's serving shape; then
+               each timed at each serving path's shapes beside the plain
+               version, one PyTorch library call where one computes the
+               same function (SDPA, K/V expanded when grouped), and the
+               card's bound (K4 also beside the gather composition; K1 by
+               tile, K2, K3 and K4 by block_k, K5 by pass);
   3c. tune   — the port's autotuner on the card (backend "cuda") over its
                default shapes and the int8 serving bucket b4c1024; the cache
                is written under build/ and not installed;
@@ -58,6 +65,14 @@ Phases, each printing its own lines; any failure exits non-zero:
                autotune cache (the int8 paged read gathers and runs K2) and
                once with a cache that routes it to K4 ("fused"); the fused
                run's logits also within 1e-3 of the gather run's;
+  4d. parity — the MoE, VLM and audio families, float32, the kernel path
+               against the plain path over prefill plus 8 decode steps:
+               phi3.5-moe-42b-a6.6b at full width cut to 2 layers through
+               the engine, the paged cache and both batchers; qwen2-vl-7b
+               at full width cut to 2 layers and whisper-base in full (6 +
+               6 layers) through the engine with 256 seeded vision / 1500
+               seeded frame embeddings; K1 and K2 (and K3 for the MoE)
+               must launch;
   5. serve   — full mistral-7b (32 layers, bf16, random weights from a seed)
                behind FleetRouter(capacity_aware) over paper_fleet(): 8
                requests through paged batchers and 2 through the engine-only
@@ -98,13 +113,27 @@ Phases, each printing its own lines; any failure exits non-zero:
                    K3 launched (its count on a line of its own), every
                    block returned; the migrated bytes beside the pricing
                    model's booked bytes, wall seconds and peak memory.
+  9. serve   — the new families (bf16 random weights built on the card from
+               the seed, each freed before the next): phi3.5-moe-42b-a6.6b
+               at full width cut to 16 of its 32 layers (the full depth
+               needs ~83 GB) behind FleetRouter as phase 5 (K1, K2, K3 must
+               launch); qwen2-vl-7b in full, the mix's first 4 prompts each
+               with 256 seeded vision embeddings, through
+               InferenceEngine.generate (K1, K2); whisper-base in full, 4
+               requests of 1500 seeded frames with prompts of at most 64
+               tokens (K2, and K1 as many times as the encoder layers and
+               cross prefills, non-causal, and the decoder prefills,
+               causal, need).
 
-Phases 5 and 6 run with no autotune cache installed.
+Every serve phase collects garbage and restarts the peak memory count
+first, and prints the bytes still allocated. Phases 5, 6 and 9 run with no
+autotune cache installed.
 
 The line before the last is one JSON object with each kernel's numbers, one
 row per kernel and serving path: ``name@arch`` is the kernel on that model's
 path (plain ``name`` is mistral-7b's for K1-K4 — K3's launches from phase
-5, K4's from phase 7 — and mamba2-130m's for K5),
+5, K4's from phase 7 — and mamba2-130m's for K5; ``@zamba2-1.2b`` rows
+count phase 6, the whisper-base, qwen2-vl-7b and phi3.5-moe rows phase 9),
 with that path's launches and its own shapes' times and errors; the
 last line is {"ok": true, "device": {...}}. Without a CUDA device, or
 without the repository beside this file, it exits non-zero and prints no
@@ -113,6 +142,7 @@ result.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -138,6 +168,15 @@ SSD_SHAPES = {"mamba2-130m": (24, 64, 128, 128), ZAMBA: (64, 64, 64, 128),
               "reduced": (16, 32, 32, 32)}
 GATHER_TOL = 3e-5     # int8 fused vs the gather oracle (tests/test_autotune.py)
 SERVE_KV_LEN = [40, 130, 300, 528]    # paged decode lanes at serving shape
+# the MoE, VLM and audio families' attention shapes
+PHI = "phi3.5-moe-42b-a6.6b"          # 32 query heads on 8 KV heads, D 128
+PHI_LAYERS = 16                       # of 32: the full depth needs ~83 GB
+QWEN = "qwen2-vl-7b"                  # 28 query heads on 4 KV heads, D 128
+QHQ, QHKV, QVIS = 28, 4, 256          # G = 7; 256 vision embeddings
+QWEN_MAX_LEN = 800                    # 256 vision + a 512 prompt + 32 out
+WHISPER = "whisper-base"              # 8 heads, no grouping, D 64
+WHQ, WD, WENC = 8, 64, 1500           # 1500 encoder frames
+W_PROMPT, W_MAX_LEN = 64, 96          # decoder prompt cap, engine context
 
 
 def fail(msg: str) -> None:
@@ -271,9 +310,11 @@ def _flash_valid_rows(torch, B, hq, Sq, q_offset, window, sk_valid):
 
 
 def check_flash(torch, gen):
-    """K1 at mistral-7b's heads, and at zamba2-1.2b's (its own row)."""
+    """K1 at mistral-7b's heads, and at zamba2-1.2b's, whisper-base's,
+    qwen2-vl-7b's and phi3.5-moe's serving shapes (a row each)."""
     from repro_torch.kernels import flash_attention as FA
-    worst = {"flash_attention": 0.0, f"flash_attention@{ZAMBA}": 0.0}
+    worst = {f"flash_attention{a}": 0.0 for a in
+             ("", f"@{ZAMBA}", f"@{WHISPER}", f"@{QWEN}", f"@{PHI}")}
     cases = []
     for dt in (torch.float32, torch.bfloat16):
         cases += [dict(dtype=dt, Sq=37, Sk=37), dict(dtype=dt, Sq=512, Sk=512),
@@ -299,13 +340,26 @@ def check_flash(torch, gen):
     cases += [dict(dtype=bf, Sq=300, Sk=300, d=d, block_q=bq, block_k=bk)
               for d in (64, 128) for bq in FA.TILES[bf][0]
               for bk in FA.TILES[bf][1]]
+    # the new families: whisper's encoder (non-causal, 1500 = 23 * 64 + 28,
+    # and a ragged 300) and cross prefill (24 queries on 1500 keys),
+    # qwen2-vl's G = 7 over 256 vision + 512 text, phi3.5-moe's prefill
+    w = dict(hq=WHQ, hkv=WHQ, d=WD, causal=False, arch=WHISPER)
+    for dt in (torch.float32, bf):
+        cases += [dict(dtype=dt, Sq=WENC, Sk=WENC, **w),
+                  dict(dtype=dt, Sq=300, Sk=300, **w),
+                  dict(dtype=dt, Sq=24, Sk=WENC, **w),
+                  dict(dtype=dt, Sq=QVIS + M_CAP, Sk=QVIS + M_CAP, hq=QHQ,
+                       hkv=QHKV, arch=QWEN),
+                  dict(dtype=dt, Sq=M_CAP, Sk=M_CAP, arch=PHI)]
+    cases += [dict(dtype=bf, Sq=WENC, Sk=WENC, block_q=bq, block_k=bk, **w)
+              for bq in FA.TILES[bf][0] for bk in FA.TILES[bf][1]]
     for c in cases:
         dt, Sq, Sk, d = c["dtype"], c["Sq"], c["Sk"], c.get("d", D)
         hq, hkv = c.get("hq", HQ), c.get("hkv", HKV)
         q = _rand(torch, gen, (1, hq, Sq, d), dt)
         k = _rand(torch, gen, (1, hkv, Sk, d), dt)
         v = _rand(torch, gen, (1, hkv, Sk, d), dt)
-        kw = dict(causal=True, window=c.get("window"),
+        kw = dict(causal=c.get("causal", True), window=c.get("window"),
                   softcap=c.get("softcap"), q_offset=c.get("q_offset", 0),
                   sk_valid=c.get("sk_valid"))
         tiles = {t: c[t] for t in ("block_q", "block_k") if t in c}
@@ -313,13 +367,17 @@ def check_flash(torch, gen):
         want = FA.flash_attention_ref(q, k, v, **kw)
         torch.cuda.synchronize()
         valid = Sk if kw["sk_valid"] is None else kw["sk_valid"]
-        rows = _flash_valid_rows(torch, 1, hq, Sq, kw["q_offset"],
-                                 kw["window"], valid)
+        if kw["causal"]:
+            rows = _flash_valid_rows(torch, 1, hq, Sq, kw["q_offset"],
+                                     kw["window"], valid)
+        else:                          # every row sees every valid key
+            rows = torch.full((1, hq, Sq), valid > 0, dtype=torch.bool,
+                              device="cuda")
         tol = TOL[str(dt).split(".")[1]]
         err, ok = _err_on_valid(torch, got, want, rows, tol)
         ok = ok and torch.count_nonzero(got[~rows]).item() == 0
         say(f"  K1 flash {str(dt)[6:]:8s} Hq={hq} Hkv={hkv} Sq={Sq:4d} "
-            f"Sk={Sk:4d} D={d:3d} window={kw['window']} "
+            f"Sk={Sk:4d} D={d:3d} causal={kw['causal']} window={kw['window']} "
             f"softcap={kw['softcap']} q_offset={kw['q_offset']} "
             f"sk_valid={kw['sk_valid']} tiles={tiles or 'default'}: "
             f"max_abs_err={err:.3e} {'ok' if ok else 'MISMATCH'}")
@@ -361,9 +419,11 @@ def _decode_inputs(torch, gen, dt, B, Smax, d, kv_len, hq=HQ, hkv=HKV):
 
 
 def check_decode(torch, gen):
-    """K2 at mistral-7b's heads, and at zamba2-1.2b's (its own row)."""
+    """K2 at mistral-7b's heads, and at zamba2-1.2b's, qwen2-vl-7b's (G = 7)
+    and whisper-base's (G = 1, D 64) (a row each)."""
     from repro_torch.kernels import decode_attention as DA
-    worst = {"decode_attention": 0.0, f"decode_attention@{ZAMBA}": 0.0}
+    worst = {f"decode_attention{a}": 0.0 for a in
+             ("", f"@{ZAMBA}", f"@{QWEN}", f"@{WHISPER}")}
     kv_len = [1, 37, 300, MAX_LEN]          # ragged; 300 > the window below
     cases = [dict(dtype=torch.float32), dict(dtype=torch.bfloat16),
              dict(dtype=torch.float32, window=64),
@@ -415,6 +475,30 @@ def check_decode(torch, gen):
                              f"block_k={bk} {kw}")
                     worst["decode_attention"] = max(
                         worst["decode_attention"], err)
+    # qwen2-vl's G = 7 (two passes of R = 4 and 3 rows) and whisper's G = 1
+    # at D 64, each at its engine context, on both sides of a split edge
+    for arch, hq, hkv, d, smax in ((QWEN, QHQ, QHKV, D, QWEN_MAX_LEN),
+                                   (WHISPER, WHQ, WHQ, WD, W_MAX_LEN)):
+        for dt in (torch.float32, torch.bfloat16):
+            for bk in (32, 64, 128):
+                edges = [n for n in (1, bk - 1, bk, bk + 1) if n < smax]
+                edges.append(smax)
+                q, kc, vc, kvl = _decode_inputs(torch, gen, dt, len(edges),
+                                                smax, d, edges, hq, hkv)
+                got = DA.decode_attention(q, kc, vc, kvl, block_k=bk)
+                want = DA.decode_attention_ref(q, kc, vc, kvl)
+                torch.cuda.synchronize()
+                rows = (kvl > 0)[:, None, None].expand(len(edges), hq, 1)
+                err, ok = _err_on_valid(torch, got, want, rows,
+                                        TOL[str(dt)[6:]])
+                say(f"  K2 {arch:12s} {str(dt)[6:]:8s} Hq={hq} Hkv={hkv} "
+                    f"D={d:3d} Smax={smax} block_k={bk:3d} kv_len={edges}: "
+                    f"max_abs_err={err:.3e} {'ok' if ok else 'MISMATCH'}")
+                if not ok:
+                    fail(f"K2 at {arch}'s grouping disagrees: {dt} "
+                         f"block_k={bk}")
+                worst[f"decode_attention@{arch}"] = max(
+                    worst[f"decode_attention@{arch}"], err)
     q, kc, vc, kvl = _decode_inputs(torch, gen, torch.bfloat16, 4, MAX_LEN, D,
                                     SERVE_KV_LEN)
     _check_split_graph(torch, "K2", DA.decode_attention,
@@ -472,6 +556,8 @@ def _paged_inputs(torch, gen, dt, bs, d, kv_len, num_blocks, max_blocks,
 
 
 def check_paged(torch, gen):
+    """K3 at mistral-7b's serving shapes and edges; then at phi3.5-moe's
+    (its own row: the same heads, no window). Returns both worst errors."""
     from repro_torch.kernels import decode_attention as DA
     worst = 0.0
     kv_len = [1, 37, 300, MAX_LEN]
@@ -536,7 +622,24 @@ def check_paged(torch, gen):
     _check_split_graph(torch, "K3", DA.paged_decode_attention,
                        DA.paged_decode_attention_ref, (q, kp, vp, tables),
                        kvl, [n - 7 for n in SERVE_KV_LEN])
-    return worst
+    phi = 0.0
+    for dt in (torch.float32, torch.bfloat16):
+        q, kp, vp, tables, kvl = _paged_inputs(torch, gen, dt, 16, D,
+                                               SERVE_KV_LEN, 1024,
+                                               -(-MAX_LEN // 16))
+        got = DA.paged_decode_attention(q, kp, vp, tables, kvl)
+        want = DA.paged_decode_attention_ref(q, kp, vp, tables, kvl)
+        torch.cuda.synchronize()
+        rows = torch.ones(got.shape[:3], dtype=torch.bool, device="cuda")
+        err, ok = _err_on_valid(torch, got, want, rows, TOL[str(dt)[6:]])
+        say(f"  K3 {PHI} {str(dt)[6:]:8s} B=4 pool=1024x16 D={D} "
+            f"kv_len={SERVE_KV_LEN}: max_abs_err={err:.3e} "
+            f"{'ok' if ok else 'MISMATCH'}")
+        if not ok:
+            fail(f"K3 at {PHI}'s serving shape disagrees: {dt}")
+        phi = max(phi, err)
+    return {"paged_decode_attention": worst,
+            f"paged_decode_attention@{PHI}": phi}
 
 
 def _int8_inputs(torch, gen, dt, bs, d, kv_len, num_blocks, max_blocks,
@@ -905,6 +1008,7 @@ def time_kernels(torch, gen):
             library_ms=None, bound_ms=b_ms, bound_by=b_by,
             tiles=_ssd_passes(torch, SS, inp, N, L),
             shape=f"{arch} B=1 H={H} S={S} P={P} N={N} chunk={L} bf16")
+    out.update(_time_families(torch, gen, F, FA, DA))
     for name, r in out.items():
         lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         extra = f" gather_ms={r['gather_ms']:.4f}" if "gather_ms" in r else ""
@@ -915,6 +1019,97 @@ def time_kernels(torch, gen):
             what = "pass" if name.startswith("ssd_scan") else "tile"
             say(f"  tiles {name:33s} ms by {what}: " + " ".join(
                 f"{t}={ms:.4f}" for t, ms in r["tiles"].items()))
+    return out
+
+
+def _flash_row(torch, F, FA, q, k, v, *, causal, shape):
+    """One K1 row: kernel, plain version, one SDPA call (K/V expanded to the
+    query heads when grouped) and the bound for these inputs, bf16."""
+    hq, sq, d = q.shape[1], q.shape[2], q.shape[3]
+    hkv, sk = k.shape[1], k.shape[2]
+    k_rep = k.repeat_interleave(hq // hkv, dim=1)
+    v_rep = v.repeat_interleave(hq // hkv, dim=1)
+    pairs = sum(min(i + 1, sk) for i in range(sq)) if causal else sq * sk
+    b_ms, b_by = _bound(4 * hq * d * pairs,
+                        (2 * hq * sq * d + 2 * hkv * sk * d) * 2)
+    kw = dict(causal=causal)
+    return dict(
+        ms=time_ms(torch, lambda: FA.flash_attention(q, k, v, **kw)),
+        plain_ms=time_ms(torch, lambda: FA.flash_attention_ref(q, k, v, **kw)),
+        library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
+            q, k_rep, v_rep, is_causal=causal)),
+        bound_ms=b_ms, bound_by=b_by,
+        tiles=_flash_tiles(torch, FA, q, k, v, kw), shape=shape)
+
+
+def _decode_row(torch, F, DA, gen, hq, hkv, d, smax, kv_len, shape):
+    """One K2 row at one lane's engine decode, bf16."""
+    q, kc, vc, kvl = _decode_inputs(torch, gen, torch.bfloat16, 1, smax, d,
+                                    [kv_len], hq, hkv)
+    k_live = kc[:, :, :kv_len].repeat_interleave(hq // hkv, dim=1)
+    v_live = vc[:, :, :kv_len].repeat_interleave(hq // hkv, dim=1)
+    b_ms, b_by = _bound(4 * hq * d * kv_len,
+                        (2 * hq * d + 2 * hkv * kv_len * d) * 2 + 4)
+    return dict(
+        ms=time_ms(torch, lambda: DA.decode_attention(q, kc, vc, kvl)),
+        plain_ms=time_ms(torch, lambda: DA.decode_attention_ref(q, kc, vc,
+                                                                kvl)),
+        library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
+            q, k_live, v_live)),
+        bound_ms=b_ms, bound_by=b_by,
+        tiles=_split_tiles(torch, DA.decode_attention, q, kc, vc, kvl,
+                           window=None), shape=shape)
+
+
+def _time_families(torch, gen, F, FA, DA):
+    """The MoE, VLM and audio families' rows: each kernel at its serving
+    path's shapes, bf16, one request (B = 1) unless batched."""
+    bf, out = torch.bfloat16, {}
+    # K1, whisper's encoder: 1500 frames, non-causal, 8 heads of 64
+    qkv = [_rand(torch, gen, (1, WHQ, WENC, WD), bf) for _ in range(3)]
+    out[f"flash_attention@{WHISPER}"] = _flash_row(
+        torch, F, FA, *qkv, causal=False,
+        shape=f"B=1 Hq=Hkv={WHQ} Sq=Sk={WENC} D={WD} bf16 non-causal")
+    # K1, qwen2-vl: 256 vision + 512 text, causal, G = 7
+    S = QVIS + M_CAP
+    q = _rand(torch, gen, (1, QHQ, S, D), bf)
+    k, v = (_rand(torch, gen, (1, QHKV, S, D), bf) for _ in range(2))
+    out[f"flash_attention@{QWEN}"] = _flash_row(
+        torch, F, FA, q, k, v, causal=True,
+        shape=f"B=1 Hq={QHQ} Hkv={QHKV} Sq=Sk={S} D={D} bf16 causal")
+    # K1, phi3.5-moe: a 512-token prompt, causal, no window
+    q = _rand(torch, gen, (1, HQ, M_CAP, D), bf)
+    k, v = (_rand(torch, gen, (1, HKV, M_CAP, D), bf) for _ in range(2))
+    out[f"flash_attention@{PHI}"] = _flash_row(
+        torch, F, FA, q, k, v, causal=True,
+        shape=f"B=1 Hq={HQ} Hkv={HKV} Sq=Sk={M_CAP} D={D} bf16 causal")
+    # K2: one lane 16 steps into decode
+    n = QVIS + M_CAP + 16
+    out[f"decode_attention@{QWEN}"] = _decode_row(
+        torch, F, DA, gen, QHQ, QHKV, D, QWEN_MAX_LEN, n,
+        f"B=1 Hq={QHQ} Hkv={QHKV} Smax={QWEN_MAX_LEN} kv_len={n} D={D} bf16")
+    n = W_PROMPT + 16
+    out[f"decode_attention@{WHISPER}"] = _decode_row(
+        torch, F, DA, gen, WHQ, WHQ, WD, W_MAX_LEN, n,
+        f"B=1 Hq=Hkv={WHQ} Smax={W_MAX_LEN} kv_len={n} D={WD} bf16")
+    # K3: phi3.5-moe's paged batchers, 4 lanes of a 1024-block pool
+    mb = -(-MAX_LEN // 16)
+    qp, kp, vp, tables, kvlp = _paged_inputs(torch, gen, bf, 16, D,
+                                             SERVE_KV_LEN, 1024, mb)
+    n_kv = sum(SERVE_KV_LEN)
+    b_ms, b_by = _bound(4 * HQ * D * n_kv,
+                        (2 * 4 * HQ * D + 2 * HKV * n_kv * D) * 2 + 4 * 4
+                        + sum(-(-n // 16) for n in SERVE_KV_LEN) * 4)
+    out[f"paged_decode_attention@{PHI}"] = dict(
+        ms=time_ms(torch, lambda: DA.paged_decode_attention(
+            qp, kp, vp, tables, kvlp)),
+        plain_ms=time_ms(torch, lambda: DA.paged_decode_attention_ref(
+            qp, kp, vp, tables, kvlp)),
+        library_ms=None, bound_ms=b_ms, bound_by=b_by,
+        tiles=_split_tiles(torch, DA.paged_decode_attention, qp, kp, vp,
+                           tables, kvlp, window=None),
+        shape=f"B=4 Hq={HQ} Hkv={HKV} pool=1024x16 kv_len={SERVE_KV_LEN} "
+              f"D={D} bf16")
     return out
 
 
@@ -947,7 +1142,7 @@ def phase_kernels(torch):
     say("== phase 3: kernels vs plain versions")
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     errs = {**check_flash(torch, gen), **check_decode(torch, gen),
-            "paged_decode_attention": check_paged(torch, gen),
+            **check_paged(torch, gen),
             "paged_decode_attention_int8": check_int8(torch, gen),
             **check_ssd(torch, gen)}
     times = time_kernels(torch, gen)
@@ -1032,14 +1227,15 @@ def _compare(torch, what, a, b):
     return err, ta
 
 
-def _engine_parity(torch, label, eng, prompts):
-    """Prefill plus 8 decode steps on both paths, the same tokens fed to
-    both. Returns the worst logit error, the caches and the kernel path's
-    logits of every step."""
+def _engine_parity(torch, label, eng, prompts, extra=None):
+    """Prefill plus 8 decode steps on both paths, the same tokens (and the
+    ``extra`` batch inputs: vision or frames embeddings) fed to both.
+    Returns the worst logit error, the caches and the kernel path's logits
+    of every step."""
     toks = torch.from_numpy(prompts).cuda()
     caches, logits = {}, {}
     for b, e in eng.items():
-        logits[b], caches[b] = e.prefill({"tokens": toks})
+        logits[b], caches[b] = e.prefill({"tokens": toks, **(extra or {})})
     worst, tok = _compare(torch, f"{label} prefill", logits["auto"],
                           logits["ref"])
     seen = [logits["auto"]]
@@ -1323,16 +1519,31 @@ def _serve_mix(torch, cfg, engine, kernels, *, paged):
     return launches, wall, tokens
 
 
-def _serve(torch, card, arch, kernels, needed, *, paged, kv_quant=False):
-    """Full-size ``arch`` (bf16 random weights from the seed) through the
-    fixed mix; fails if a kernel in ``needed`` never launched. Returns the
-    launches and the served tokens."""
+def _fresh_peak(torch):
+    """Frees what earlier phases left (objects in reference cycles wait for
+    the collector) and restarts the peak count. Returns the bytes still
+    allocated, the base of the next peak."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    say(f"  allocated before this phase: {base / 1e9:.3f} GB")
+    return base
+
+
+def _serve(torch, card, arch, kernels, needed, *, paged, kv_quant=False,
+           layers=None):
+    """Full-size ``arch`` (bf16 random weights from the seed; ``layers``
+    cuts the depth) through the fixed mix; fails if a kernel in ``needed``
+    never launched. Returns the launches and the served tokens."""
     from repro_torch.configs import get_config
     from repro_torch.models import model as M
     from repro_torch.serving.engine import InferenceEngine
 
     cfg = get_config(arch)
-    torch.cuda.reset_peak_memory_stats()
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    _fresh_peak(torch)
     t0 = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     params = M.init_params(cfg, gen, torch.bfloat16, "cuda")
@@ -1411,6 +1622,181 @@ def phase_serve_ssm(torch, card):
         say(f"== phase 6: serve {arch} (full, bf16) through FleetRouter")
         launches, _ = _serve(torch, card, arch, kernels, needed, paged=False)
         out.update({key.format(k): launches[k] for k in needed})
+    return out
+
+
+# --------------------------------------------------------------- phase 4d
+def _seeded_embeddings(torch, gen, shape):
+    """Stub frontend output (vision patches or audio frames), scaled as the
+    token embeddings are."""
+    return torch.randn(shape, generator=gen, device="cuda") * 0.02
+
+
+def _launch_counts():
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.kernels import flash_attention as FA
+    return {fn.__name__: fn.launches for fn in (
+        FA.flash_attention, DA.decode_attention, DA.paged_decode_attention)}
+
+
+def _parity_launched(label, before, needed):
+    """Fails unless each kernel in ``needed`` launched since ``before``."""
+    now = _launch_counts()
+    moved = {k: now[k] - before[k] for k in now}
+    say(f"  {label} kernel-path launches: {moved}")
+    if not all(moved[k] > 0 for k in needed):
+        fail(f"phase 4d: {label} did not launch each of {needed}")
+
+
+def phase_parity_families(torch):
+    """Kernel path vs plain path for the MoE, VLM and audio families:
+    phi3.5-moe (2 layers) through the engine, the paged cache and both
+    batchers; qwen2-vl-7b (2 layers) and whisper-base (6 + 6 layers, in
+    full) through the engine with seeded vision or frame embeddings."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.serving.batching import ContinuousBatcher
+    worst = 0.0
+
+    say(f"== phase 4d: model parity, {PHI} full width, 2 layers, float32")
+    cfg = dataclasses.replace(get_config(PHI), num_layers=2)
+    eng = _parity_engines(torch, cfg, PARITY_MAX_LEN)
+    prompts = np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, size=(2, 100)).astype(np.int32)
+    before = _launch_counts()
+    err, _, _ = _dense_and_paged_parity(torch, f"{PHI} ", eng, prompts)
+    _batcher_parity(f"{PHI} dense batcher", eng,
+                    lambda e: ContinuousBatcher(e, slots=2), prompts)
+    _parity_launched(PHI, before, ("flash_attention", "decode_attention",
+                                   "paged_decode_attention"))
+    worst = max(worst, err)
+    del eng
+    torch.cuda.empty_cache()
+
+    for arch, layers, max_len, key, n_in, S in (
+            (QWEN, 2, 400, "vision", QVIS, 100),
+            (WHISPER, None, W_MAX_LEN, "frames", WENC, 40)):
+        cfg = get_config(arch)
+        if layers is not None:
+            cfg = dataclasses.replace(cfg, num_layers=layers)
+        say(f"== phase 4d: model parity, {arch} full width, "
+            f"{cfg.num_layers} layers, float32, {n_in} seeded {key} "
+            f"embeddings")
+        eng = _parity_engines(torch, cfg, max_len)
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+        extra = {key: _seeded_embeddings(torch, gen, (2, n_in, cfg.d_model))}
+        prompts = np.random.default_rng(SEED).integers(
+            0, cfg.vocab_size, size=(2, S)).astype(np.int32)
+        before = _launch_counts()
+        err, _, _ = _engine_parity(torch, arch, eng, prompts, extra)
+        _parity_launched(arch, before, ("flash_attention",
+                                        "decode_attention"))
+        worst = max(worst, err)
+        del eng
+        torch.cuda.empty_cache()
+    say(f"  parity ok: worst logit err {worst:.3e} (limit 1e-3)")
+    return worst
+
+
+# --------------------------------------------------------------- phase 9
+def _serve_generate(torch, card, cfg, requests, max_len, kernels, needed):
+    """``cfg`` (bf16 random weights built on the card from the seed) through
+    ``InferenceEngine.generate``, one request (a batch of 1) at a time:
+    ``requests`` is [(batch, n)]. Checks each output; fails if a kernel in
+    ``needed`` never launched. Returns the launches, counted from 0."""
+    from repro_torch.models import model as M
+    from repro_torch.serving.engine import InferenceEngine
+    _fresh_peak(torch)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    params = M.init_params(cfg, gen, torch.bfloat16, "cuda")
+    torch.cuda.synchronize()
+    say(f"  weights: {M.param_count(params) / 1e9:.3f}B params bf16, "
+        f"{cfg.num_layers} layers, init {time.perf_counter() - t0:.2f} s")
+    engine = InferenceEngine(cfg, params, max_len=max_len,
+                             dtype=torch.bfloat16, device="cuda")
+    for fn in kernels:
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for i, (batch, n) in enumerate(requests):
+        res = engine.generate(batch, n)
+        toks = res.tokens[0]
+        extra = {k: tuple(v.shape) for k, v in batch.items() if k != "tokens"}
+        say(f"  req{i:3d} m={batch['tokens'].shape[1]:4d} n={n:3d} {extra} "
+            f"tokens[:8]={[int(t) for t in toks[:8]]}")
+        if len(toks) != n or not ((0 <= toks) & (toks < cfg.vocab_size)).all():
+            fail(f"{cfg.name} request {i}: {len(toks)} tokens for a budget of "
+                 f"{n}, or a token outside the vocabulary")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    launches = {fn.__name__: fn.launches for fn in kernels}
+    say(f"  launches in this run: {launches}")
+    if not all(launches[k] > 0 for k in needed):
+        fail(f"{cfg.name}: a kernel of the serving path never launched "
+             f"(needs {needed}): {launches}")
+    say(f"  {cfg.name} serve wall_s={wall:.3f} max_memory_allocated_gb="
+        f"{torch.cuda.max_memory_allocated() / 1e9:.3f} card={card}")
+    del params, engine
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_serve_families(torch, card):
+    """phi3.5-moe (16 of 32 layers) behind FleetRouter as phase 5;
+    qwen2-vl-7b and whisper-base in full through InferenceEngine.generate.
+    Returns each kernels-line row's launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.kernels import flash_attention as FA
+    kernels = (FA.flash_attention, DA.decode_attention,
+               DA.paged_decode_attention)
+    names = [fn.__name__ for fn in kernels]
+    out = {}
+    say(f"== phase 9: serve {PHI} ({PHI_LAYERS} of 32 layers, bf16) through "
+        f"FleetRouter")
+    launches, _ = _serve(torch, card, PHI, kernels, names, paged=True,
+                         layers=PHI_LAYERS)
+    out[f"flash_attention@{PHI}"] = launches["flash_attention"]
+    out[f"paged_decode_attention@{PHI}"] = launches["paged_decode_attention"]
+
+    say(f"== phase 9: serve {QWEN} (full, bf16) through "
+        f"InferenceEngine.generate")
+    cfg = get_config(QWEN)
+    work, prompts = _mix(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    reqs = [({"tokens": torch.from_numpy(p.astype("int32"))[None].cuda(),
+              "vision": _seeded_embeddings(torch, gen, (1, QVIS, cfg.d_model))},
+             n) for p, (_, n) in zip(prompts[:4], work[:4])]
+    launches = _serve_generate(torch, card, cfg, reqs, QWEN_MAX_LEN, kernels,
+                               ("flash_attention", "decode_attention"))
+    out[f"flash_attention@{QWEN}"] = launches["flash_attention"]
+    out[f"decode_attention@{QWEN}"] = launches["decode_attention"]
+
+    say(f"== phase 9: serve {WHISPER} (full, bf16) through "
+        f"InferenceEngine.generate")
+    cfg = get_config(WHISPER)
+    work, prompts = _mix(cfg)
+    reqs = [({"tokens": torch.from_numpy(p[:W_PROMPT].astype("int32"))[None]
+              .cuda(),
+              "frames": _seeded_embeddings(torch, gen, (1, WENC, cfg.d_model))},
+             n) for p, (_, n) in zip(prompts[:4], work[:4])]
+    launches = _serve_generate(torch, card, cfg, reqs, W_MAX_LEN, kernels,
+                               ("flash_attention", "decode_attention"))
+    # per request: the encoder's layers and the cross prefills (a prompt
+    # of one token takes the plain cross row) are the non-causal K1
+    # launches, the decoder's self-attention prefills the causal ones
+    non_causal = sum(cfg.encoder_layers + cfg.num_layers * (
+        b["tokens"].shape[1] > 1) for b, _ in reqs)
+    causal = len(reqs) * cfg.num_layers
+    want = non_causal + causal
+    say(f"  K1 launches {launches['flash_attention']}: {non_causal} "
+        f"non-causal + {causal} causal = {want}")
+    if launches["flash_attention"] != want:
+        fail(f"{WHISPER}: K1 launched {launches['flash_attention']} times, "
+             f"not {want}")
+    out[f"flash_attention@{WHISPER}"] = launches["flash_attention"]
+    out[f"decode_attention@{WHISPER}"] = launches["decode_attention"]
     return out
 
 
@@ -1708,7 +2094,7 @@ def phase_disagg_serve(torch, card):
     from repro_torch.models import model as M
     from repro_torch.serving.engine import InferenceEngine
     cfg = get_config("mistral-7b")
-    torch.cuda.reset_peak_memory_stats()
+    _fresh_peak(torch)
     t0 = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     params = M.init_params(cfg, gen, torch.bfloat16, "cuda")
@@ -1771,6 +2157,7 @@ def main() -> None:
     phase_parity(torch)
     phase_parity_ssm(torch)
     phase_parity_int8(torch)
+    phase_parity_families(torch)
     launches, bf16_tokens = phase_serve(torch, card)
     launches.update(phase_serve_ssm(torch, card))
     int8 = phase_serve_int8(torch, card, bf16_tokens)
@@ -1779,6 +2166,7 @@ def main() -> None:
     phase_disagg_migration(torch)
     phase_disagg_parity(torch)
     phase_disagg_serve(torch, card)
+    launches.update(phase_serve_families(torch, card))
 
     sources = {"flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                                    "src/repro/kernels/flash_attention.py:98"),
@@ -1796,7 +2184,11 @@ def main() -> None:
     for kname in ("flash_attention", "decode_attention",
                   "paged_decode_attention", "paged_decode_attention_int8",
                   "ssd_scan", f"ssd_scan@{ZAMBA}",
-                  f"flash_attention@{ZAMBA}", f"decode_attention@{ZAMBA}"):
+                  f"flash_attention@{ZAMBA}", f"decode_attention@{ZAMBA}",
+                  f"flash_attention@{WHISPER}", f"flash_attention@{QWEN}",
+                  f"flash_attention@{PHI}", f"decode_attention@{QWEN}",
+                  f"decode_attention@{WHISPER}",
+                  f"paged_decode_attention@{PHI}"):
         src, replaces = sources[kname.split("@")[0]]
         t = times[kname]
         rows.append({"name": kname, "route": "cuda", "source": src,

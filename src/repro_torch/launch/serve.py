@@ -1,8 +1,11 @@
 """Serving entry point: hybrid-fleet router + the torch engine.
 
 ``python -m repro_torch.launch.serve --arch smollm-360m --requests 20``
-(any ported family: ``--arch mamba2-130m`` or ``--arch zamba2-1.2b`` serve
-the SSM and hybrid models, reduced as in ``repro.launch.serve``)
+(any family the router serves by tokens: ``--arch phi3.5-moe-42b-a6.6b``
+or ``--arch grok-1-314b`` serve the MoE models, ``--arch mamba2-130m`` or
+``--arch zamba2-1.2b`` the SSM and hybrid ones, reduced as in
+``repro.launch.serve``; the VLM and audio families are served through
+``InferenceEngine.generate``)
 
 Routes an Alpaca-like request stream across an (efficiency, performance)
 pool pair with the paper's scheduler, executes every request on the engine,

@@ -1,6 +1,7 @@
-"""Attention for the dense family and the hybrid's shared block: GQA with
-RoPE, KV-cache prefill and decode on a dense or a paged cache, float or int8
-with per-row float32 scales (counterpart of ``repro/models/attention.py``).
+"""Attention: GQA/MQA/MHA with RoPE or M-RoPE, causal or bidirectional,
+sliding window, KV-cache prefill and decode on a dense or a paged cache,
+float or int8 with per-row float32 scales, and cross-attention over an
+encoder's K/V (counterpart of ``repro/models/attention.py``).
 
 The reference package returns new caches; here cache writes are in place
 (indexed assignment into the given tensors), which saves a copy of the whole
@@ -16,8 +17,13 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops, ref
 from repro_torch.models import layers as L
 
+MROPE_SECTIONS_FRAC = (0.25, 0.375, 0.375)  # qwen2-vl [16, 24, 24] of 64 half-dims
 
-def attn_init(gen: torch.Generator, cfg: ModelConfig, dtype, device):
+
+def attn_init(gen: torch.Generator, cfg: ModelConfig, dtype, device, *,
+              cross: bool = False):
+    """q/k/v/o projections; a cross-attention block (``cross``) has the same
+    leaves, its k/v applied to the encoder's output."""
     hd = cfg.resolved_head_dim
     bias = cfg.qkv_bias
     return {
@@ -64,19 +70,47 @@ def _write_int8(k_cache, v_cache, k_scale, v_scale, at, k, v) -> None:
         scale[at] = xs                                      # in place
 
 
+def _mrope_sections(head_dim: int):
+    half = head_dim // 2
+    s0 = int(half * MROPE_SECTIONS_FRAC[0])
+    s1 = int(half * MROPE_SECTIONS_FRAC[1])
+    return (s0, s1, half - s0 - s1)
+
+
+def _position_encode(cfg: ModelConfig, q, k, positions):
+    """RoPE on positions (B, S), or M-RoPE on positions (B, S, 3); "learned"
+    and "none" are handled at the embedding."""
+    if cfg.pos_emb == "rope":
+        q = L.apply_rope(q, positions, cfg.rope_theta)
+        k = L.apply_rope(k, positions, cfg.rope_theta)
+    elif cfg.pos_emb == "mrope":
+        sec = _mrope_sections(cfg.resolved_head_dim)
+        q = L.apply_mrope(q, positions, cfg.rope_theta, sec)
+        k = L.apply_mrope(k, positions, cfg.rope_theta, sec)
+    return q, k
+
+
 def _qkv(params, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor):
-    """Projections, heads split, RoPE on q and k; contiguous (B, H, S, D),
-    the layout the kernels take."""
+    """Projections, heads split, position encoding on q and k; contiguous
+    (B, H, S, D), the layout the kernels take."""
     hd = cfg.resolved_head_dim
     q = _split_heads(L.linear(params["q"], x), cfg.num_heads, hd)
     k = _split_heads(L.linear(params["k"], x), cfg.num_kv_heads, hd)
     v = _split_heads(L.linear(params["v"], x), cfg.num_kv_heads, hd)
-    if cfg.pos_emb == "rope":
-        q = L.apply_rope(q, positions, cfg.rope_theta)
-        k = L.apply_rope(k, positions, cfg.rope_theta)
-    elif cfg.pos_emb != "none":
-        raise NotImplementedError(f"pos_emb {cfg.pos_emb!r} is not ported")
+    q, k = _position_encode(cfg, q, k, positions)
     return q.contiguous(), k.contiguous(), v.contiguous()
+
+
+def self_attention(params, cfg: ModelConfig, x: torch.Tensor, *,
+                   positions: torch.Tensor, causal: bool = True,
+                   window: Optional[int] = None,
+                   backend: str = "auto") -> torch.Tensor:
+    """Full-sequence self attention with no cache (the audio encoder's,
+    bidirectional). positions: (B, S) or (B, S, 3)."""
+    q, k, v = _qkv(params, cfg, x, positions)
+    out = ops.flash_attention(q, k, v, causal=causal, window=window,
+                              softcap=cfg.attn_logit_softcap, backend=backend)
+    return L.linear(params["o"], _merge_heads(out))
 
 
 def prefill_attention(params, cfg: ModelConfig, x: torch.Tensor, *,
@@ -219,3 +253,30 @@ def paged_decode_self_attention(params, cfg: ModelConfig, x: torch.Tensor, *,
                                          softcap=cfg.attn_logit_softcap,
                                          backend=backend)
     return L.linear(params["o"], _merge_heads(out))
+
+
+def cross_attention(params, cfg: ModelConfig, x: torch.Tensor, *,
+                    enc_k: torch.Tensor, enc_v: torch.Tensor,
+                    backend: str = "auto") -> torch.Tensor:
+    """Decoder cross-attention over precomputed encoder K/V (B, Hkv, S_enc,
+    D). A prompt (S > 1) runs the non-causal flash prefill (K1 on the card);
+    a one-token decode is a (1, S_enc) score row per head, on the plain path
+    on every device, as in the reference."""
+    hd = cfg.resolved_head_dim
+    q = _split_heads(L.linear(params["q"], x), cfg.num_heads, hd)
+    if x.shape[1] == 1:
+        out = ref.mha_attention(q, enc_k, enc_v, causal=False)
+    else:
+        out = ops.flash_attention(q.contiguous(), enc_k.contiguous(),
+                                  enc_v.contiguous(), causal=False,
+                                  backend=backend)
+    return L.linear(params["o"], _merge_heads(out))
+
+
+def encode_kv(params, cfg: ModelConfig, enc_out: torch.Tensor):
+    """Cross-attention K/V (B, Hkv, S_enc, D) from the encoder's output,
+    computed once per request."""
+    hd = cfg.resolved_head_dim
+    k = _split_heads(L.linear(params["k"], enc_out), cfg.num_kv_heads, hd)
+    v = _split_heads(L.linear(params["v"], enc_out), cfg.num_kv_heads, hd)
+    return k, v

@@ -2,10 +2,14 @@
 same function on the same numbers.
 
 The caller hands over the JAX params as numpy arrays (``jax.tree.map(
-np.asarray, params)``); nothing here imports JAX. The stacked
-``params["layers"]`` subtree (leading layer axis) becomes a list of
-per-layer dicts; every other subtree (the hybrid's ``shared_attn`` too)
-is carried as it is. numpy has no native bfloat16, so every array comes
+np.asarray, params)``); nothing here imports JAX. Each stacked layer
+subtree (leading layer axis) becomes a list of per-layer dicts:
+``layers`` (dense, MoE, VLM, SSM, hybrid), and the audio family's
+``enc_layers`` and ``dec_layers``. Every other subtree is carried as it
+is: the hybrid's ``shared_attn``, the audio family's ``enc_final_norm``
+and ``dec_pos``; so are a layer's MoE leaves (``router.w`` (d, E);
+``gate``, ``up`` (E, d, ff); ``down`` (E, ff, d)), whose expert axis is
+not a layer axis. numpy has no native bfloat16, so every array comes
 across through float32 numpy and is cast to ``dtype`` on the device, except
 the Mamba leaves the reference keeps in float32 whatever the model dtype
 (``ssm.FLOAT32_LEAVES``), which stay float32.
@@ -47,10 +51,12 @@ def _layer(x: Any, i: int):
 
 def from_jax_params(params_np, cfg: ModelConfig, dtype=torch.float32,
                     device="cpu") -> Params:
-    """The reference's params (numpy leaves) as this port's params."""
+    """The reference's params (numpy leaves) as this port's params: the
+    stacked ``layers``, ``enc_layers`` and ``dec_layers`` subtrees become
+    lists of per-layer dicts, every other subtree is carried as it is."""
     _check_family(cfg)
-    out = {k: _tree(v, dtype, device) for k, v in params_np.items()
-           if k != "layers"}
-    out["layers"] = [_tree(_layer(params_np["layers"], i), dtype, device)
-                     for i in range(cfg.num_layers)]
-    return out
+    depth = {"layers": cfg.num_layers, "enc_layers": cfg.encoder_layers,
+             "dec_layers": cfg.num_layers}             # the stacked subtrees
+    return {k: [_tree(_layer(v, i), dtype, device) for i in range(depth[k])]
+            if k in depth else _tree(v, dtype, device)
+            for k, v in params_np.items()}

@@ -10,7 +10,7 @@ Conventions, as in the reference package:
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -98,6 +98,42 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, theta: float,
+                sections: Sequence[int]) -> torch.Tensor:
+    """Multimodal RoPE (Qwen2-VL, arXiv:2409.12191).
+
+    x (B, H, S, D); positions3 (B, S, 3) = (temporal, height, width) ids.
+    The D/2 rotary frequencies are split into 3 contiguous sections, each
+    rotated by its own position stream; float32 throughout.
+    """
+    half = x.shape[-1] // 2
+    if sum(sections) != half:
+        raise ValueError(f"mrope sections {tuple(sections)} do not sum to "
+                         f"{half}")
+    dev = x.device
+    exponent = torch.arange(half, dtype=torch.float32, device=dev) / half
+    inv_freq = 1.0 / (theta ** exponent)
+    # per frequency index, the position stream that drives it
+    sec_id = torch.repeat_interleave(
+        torch.arange(3, device=dev),
+        torch.as_tensor(tuple(sections), device=dev))
+    pos = positions3.float()[..., sec_id]                  # (B, S, half)
+    ang = pos * inv_freq
+    cos = torch.cos(ang)[:, None]
+    sin = torch.sin(ang)[:, None]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def sinusoidal_positions(seq_len: int, dim: int, device="cpu") -> torch.Tensor:
+    """Classic transformer sinusoids (whisper encoder), float32 (S, dim)."""
+    pos = torch.arange(seq_len, dtype=torch.float32, device=device)[:, None]
+    idx = torch.arange(dim // 2, dtype=torch.float32, device=device)[None, :]
+    angle = pos / (10000.0 ** (2 * idx / dim))
+    return torch.cat([torch.sin(angle), torch.cos(angle)], dim=-1)
 
 
 # --------------------------------------------------------------------------- mlp

@@ -1,27 +1,37 @@
-"""Model assembly for the dense, SSM and hybrid families (counterpart of
-``repro/models/model.py``; the MoE, VLM and audio families wait for ROADMAP
-Queue 1 item 8).
+"""Model assembly for every assigned family: dense, MoE, VLM, SSM, hybrid
+and audio (counterpart of ``repro/models/model.py``; the training forward
+is not ported yet).
 
 Public API (``cfg`` is a frozen ``ModelConfig``):
 
-    init_params(cfg, generator, dtype, device)               -> params
-    init_cache(cfg, batch_size, max_len, dtype, device, kv_quant=) -> cache
+    init_params(cfg, generator, dtype, device, max_positions=) -> params
+    init_cache(cfg, batch_size, max_len, dtype, device, enc_len=, kv_quant=)
     prefill(params, cfg, batch, cache)                       -> (last_logits, cache)
     decode_step(params, cfg, tokens, cache)                  -> (logits, cache)
+    encode(params, cfg, frames)                              -> encoder output
     init_paged_cache(cfg, lanes, num_blocks, block_size, ..., kv_quant=)
     prefill_paged_chunk(params, cfg, tokens, cache, lane=, n_valid=)
     decode_step_paged(params, cfg, tokens, cache, live=)
 
-Params are the reference's pytree with the stacked ``layers`` subtree split
-into a list of per-layer dicts; a Python loop over that list takes the place
-of ``layer_scan``. Caches are dicts of tensors updated in place (the
+``batch`` holds ``tokens`` (B, S) for every family, and ``vision`` (B,
+n_vis, d_model) for the VLM family (patch embeddings put before the text)
+or ``frames`` (B, S_enc, d_model) for the audio family (frame embeddings
+for the encoder); the frontends that would make them are stubs, as in the
+reference.
+
+Params are the reference's pytree with each stacked layer subtree
+(``layers``, ``enc_layers``, ``dec_layers``) split into a list of
+per-layer dicts; a Python loop over that list takes the place of
+``layer_scan``. Caches are dicts of tensors updated in place (the
 functions still return them, so call sites read like the reference). The
-paged cache holds attention K/V only: SSM and hybrid lanes carry
-fixed-size recurrent state and are served from the dense cache. With
-``kv_quant`` the dense family's K/V are int8 with per-row float32 scales
-(``k_scale``/``v_scale``, ``kp_scale``/``vp_scale``); every step function
-takes the int8 branch when the cache holds those keys, as the reference
-does.
+paged cache holds attention K/V only (dense and MoE): SSM and hybrid lanes
+carry fixed-size recurrent state, and VLM and audio prompts carry
+embeddings a chunk cannot split, so they are served from the dense cache.
+With ``kv_quant`` the dense, MoE and VLM families' K/V are int8 with
+per-row float32 scales (``k_scale``/``v_scale``, ``kp_scale``/``vp_scale``);
+every step function takes the int8 branch when the cache holds those keys,
+as the reference does. MoE layers route with capacity in ``prefill`` and
+dropless everywhere else, as the reference's do.
 """
 from __future__ import annotations
 
@@ -32,30 +42,47 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as ATT
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
 
 Params = Dict[str, Any]
 
-# Families this port runs so far.
-FAMILIES = ("dense", "ssm", "hybrid")
+FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid", "audio")
+# families whose layers are attention plus an MLP or MoE FFN over a K/V cache
+KV_FAMILIES = ("dense", "moe", "vlm")
 
 
 def _check_family(cfg: ModelConfig) -> None:
     if cfg.family not in FAMILIES:
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (ROADMAP Queue 1 item 8); "
-            f"supported: {FAMILIES}")
+        raise ValueError(f"unknown family {cfg.family!r}; one of {FAMILIES}")
 
 
 # ===========================================================================
 # init
 # ===========================================================================
 def _dense_layer_init(gen: torch.Generator, cfg: ModelConfig, dtype, device):
-    return {"attn_norm": L.norm_init(cfg.norm, cfg.d_model, dtype, device),
-            "attn": ATT.attn_init(gen, cfg, dtype, device),
-            "mlp_norm": L.norm_init(cfg.norm, cfg.d_model, dtype, device),
-            "mlp": L.mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.activation,
-                              dtype, device)}
+    p = {"attn_norm": L.norm_init(cfg.norm, cfg.d_model, dtype, device),
+         "attn": ATT.attn_init(gen, cfg, dtype, device),
+         "mlp_norm": L.norm_init(cfg.norm, cfg.d_model, dtype, device)}
+    if cfg.family == "moe":
+        p["moe"] = MOE.moe_init(gen, cfg, dtype, device)
+    else:
+        p["mlp"] = L.mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.activation,
+                              dtype, device)
+    return p
+
+
+def _encdec_layer_init(gen: torch.Generator, cfg: ModelConfig, dtype, device,
+                       *, cross: bool):
+    p = {"attn_norm": L.norm_init(cfg.norm, cfg.d_model, dtype, device),
+         "attn": ATT.attn_init(gen, cfg, dtype, device),
+         "mlp_norm": L.norm_init(cfg.norm, cfg.d_model, dtype, device),
+         "mlp": L.mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.activation, dtype,
+                           device)}
+    if cross:
+        p["cross_norm"] = L.norm_init(cfg.norm, cfg.d_model, dtype, device)
+        p["cross"] = ATT.attn_init(gen, cfg, dtype, device, cross=True)
+    return p
 
 
 def _mamba_layer_init(gen: torch.Generator, cfg: ModelConfig, dtype, device):
@@ -64,29 +91,44 @@ def _mamba_layer_init(gen: torch.Generator, cfg: ModelConfig, dtype, device):
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
-                dtype=torch.float32, device="cpu") -> Params:
+                dtype=torch.float32, device="cpu",
+                max_positions: Optional[int] = None) -> Params:
     """Random weights with the reference's shapes, scales and leaf dtypes
     (``ssm.FLOAT32_LEAVES`` stay float32), drawn on ``device`` from
     ``generator`` (which must live on that device). The numbers differ from
     the reference's (JAX PRNG); use ``convert`` to run both packages on the
-    same weights."""
+    same weights. ``max_positions``: rows of the audio decoder's learned
+    position table (default ``cfg.max_seq_len``)."""
     _check_family(cfg)
+    g = generator
     params: Params = {
-        "embed": L.embed_init(generator, cfg.vocab_size, cfg.d_model, dtype,
-                              device),
+        "embed": L.embed_init(g, cfg.vocab_size, cfg.d_model, dtype, device),
         "final_norm": L.norm_init(cfg.norm, cfg.d_model, dtype, device)}
     if not cfg.tie_embeddings:
-        params["unembed"] = L.dense_init(generator, cfg.d_model,
-                                         cfg.vocab_size, dtype, device)
-    layer_init = _dense_layer_init if cfg.family == "dense" \
-        else _mamba_layer_init
-    params["layers"] = [layer_init(generator, cfg, dtype, device)
-                        for _ in range(cfg.num_layers)]
-    if cfg.family == "hybrid":
-        # the reference's _encdec_layer_init(cross=False): a dense layer's
-        # leaves, one block shared by every attention call
-        params["shared_attn"] = _dense_layer_init(generator, cfg, dtype,
-                                                  device)
+        params["unembed"] = L.dense_init(g, cfg.d_model, cfg.vocab_size,
+                                         dtype, device)
+    if cfg.family in KV_FAMILIES:
+        params["layers"] = [_dense_layer_init(g, cfg, dtype, device)
+                            for _ in range(cfg.num_layers)]
+    elif cfg.family in ("ssm", "hybrid"):
+        params["layers"] = [_mamba_layer_init(g, cfg, dtype, device)
+                            for _ in range(cfg.num_layers)]
+        if cfg.family == "hybrid":
+            # one block shared by every attention call
+            params["shared_attn"] = _encdec_layer_init(g, cfg, dtype, device,
+                                                       cross=False)
+    else:                                                   # audio
+        mp = max_positions or cfg.max_seq_len
+        params["enc_layers"] = [
+            _encdec_layer_init(g, cfg, dtype, device, cross=False)
+            for _ in range(cfg.encoder_layers)]
+        params["enc_final_norm"] = L.norm_init(cfg.norm, cfg.d_model, dtype,
+                                               device)
+        params["dec_layers"] = [
+            _encdec_layer_init(g, cfg, dtype, device, cross=True)
+            for _ in range(cfg.num_layers)]
+        params["dec_pos"] = {"emb": L._normal(g, (mp, cfg.d_model), 0.01,
+                                              dtype, device)}
     return params
 
 
@@ -105,9 +147,53 @@ def _logits(params, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
     return L.linear(params["unembed"], h)
 
 
-def _mlp_block(lp, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
+def _mlp_block(lp, cfg: ModelConfig, h: torch.Tensor, *,
+               dropless: bool = True) -> torch.Tensor:
+    """The norm and FFN half of a layer: an MLP, or (MoE) the routed
+    experts, dropless unless the caller asks for capacity dispatch."""
     m = L.norm_apply(cfg.norm, lp["mlp_norm"], h)
+    if "moe" in lp:
+        y, _ = MOE.moe_apply(lp["moe"], cfg, m, dropless=dropless)
+        return h + y
     return h + L.mlp_apply(lp["mlp"], m, cfg.activation)
+
+
+# ===========================================================================
+# position helpers
+# ===========================================================================
+def mrope_positions(cfg: ModelConfig, B: int, seq_len: int, n_vis: int,
+                    start: int = 0, device="cpu") -> torch.Tensor:
+    """(B, seq_len, 3) int32 position ids: vision tokens get a (t=0, h, w)
+    grid, text tokens equal (t, h, w) = grid_side + text_index (qwen2-vl)."""
+    g = max(1, int(round(n_vis ** 0.5)))
+    idx = torch.arange(seq_len, device=device) + start
+    is_vis = idx < n_vis
+    text = idx - n_vis + g
+    t = torch.where(is_vis, 0, text)
+    h = torch.where(is_vis, idx // g, text)
+    w = torch.where(is_vis, idx % g, text)
+    pos = torch.stack([t, h, w], dim=-1)                    # (S, 3)
+    return pos[None].expand(B, seq_len, 3).to(torch.int32)
+
+
+def _positions(cfg: ModelConfig, B: int, S: int, n_vis: int = 0,
+               device="cpu") -> torch.Tensor:
+    if cfg.pos_emb == "mrope":
+        return mrope_positions(cfg, B, S, n_vis, device=device)
+    return torch.arange(S, dtype=torch.int32, device=device)[None].expand(B, S)
+
+
+def _decode_positions(cfg: ModelConfig, pos: torch.Tensor) -> torch.Tensor:
+    """Positions of one decode token per lane from the length before it:
+    (B, 1), or (B, 1, 3) under M-RoPE, where the text stream's position is
+    pos - n_vis + grid_side on all three streams, n_vis taken from the
+    config, as in the reference."""
+    if cfg.pos_emb == "mrope":
+        n_vis = cfg.num_vision_tokens
+        g = max(1, int(round(n_vis ** 0.5)))
+        p = (pos - n_vis + g).to(torch.int32)
+        return torch.stack([p, p, p], dim=-1)[:, None, :]
+    return pos[:, None]
 
 
 def _hybrid_segments(cfg: ModelConfig):
@@ -128,22 +214,36 @@ def _hybrid_segments(cfg: ModelConfig):
 # ===========================================================================
 def init_cache(cfg: ModelConfig, batch_size: int, max_len: int,
                dtype=torch.float32, device="cpu",
+               enc_len: Optional[int] = None,
                kv_quant: bool = False) -> Dict[str, torch.Tensor]:
     """pos (B,) int32, and per family:
 
-      dense   k/v   (layers, B, Hkv, max_len, hd); with ``kv_quant`` int8,
+      dense, moe, vlm
+              k/v   (layers, B, Hkv, max_len, hd); with ``kv_quant`` int8,
                     and k_scale/v_scale (layers, B, Hkv, max_len, 1) float32
       ssm     conv  (layers, B, conv_width-1, d_inner+2N)  in ``dtype``
               ssm   (layers, B, H, P, N)                   float32
       hybrid  conv/ssm as above, and ak/av (attention calls, B, Hkv,
               max_len, hd): one slot per call of the shared block
+      audio   k/v as dense (never int8), and ck/cv (layers, B, Hkv,
+              enc_len, hd): the cross-attention K/V of the encoder's output
+              (``enc_len`` defaults to ``cfg.encoder_seq_len``)
     """
     _check_family(cfg)
     z = dict(dtype=dtype, device=device)
     cache = {"pos": torch.zeros((batch_size,), dtype=torch.int32,
                                 device=device)}
     hd = cfg.resolved_head_dim
-    if cfg.family == "dense":
+    if cfg.family == "audio":
+        shape = (cfg.num_layers, batch_size, cfg.num_kv_heads, max_len, hd)
+        cache["k"] = torch.zeros(shape, **z)
+        cache["v"] = torch.zeros(shape, **z)
+        el = enc_len or cfg.encoder_seq_len
+        cshape = (cfg.num_layers, batch_size, cfg.num_kv_heads, el, hd)
+        cache["ck"] = torch.zeros(cshape, **z)
+        cache["cv"] = torch.zeros(cshape, **z)
+        return cache
+    if cfg.family in KV_FAMILIES:
         shape = (cfg.num_layers, batch_size, cfg.num_kv_heads, max_len, hd)
         kv_dtype = torch.int8 if kv_quant else dtype
         cache["k"] = torch.zeros(shape, dtype=kv_dtype, device=device)
@@ -205,16 +305,83 @@ def _recurrent_layers(params: Params, cfg: ModelConfig, h: torch.Tensor,
     return h
 
 
+# --------------------------------------------------------------------- audio
+def encode(params: Params, cfg: ModelConfig, frames: torch.Tensor, *,
+           backend: str = "auto") -> torch.Tensor:
+    """Bidirectional encoder over the stub frame embeddings (B, S_enc, d):
+    sinusoidal positions, then non-causal self attention (K1 on the card)
+    and an MLP per layer, then the final norm."""
+    B, S_enc, _ = frames.shape
+    h = frames + L.sinusoidal_positions(S_enc, cfg.d_model,
+                                        frames.device).to(frames.dtype)[None]
+    positions = torch.arange(S_enc, dtype=torch.int32,
+                             device=frames.device)[None].expand(B, S_enc)
+    for lp in params["enc_layers"]:
+        a = L.norm_apply(cfg.norm, lp["attn_norm"], h)
+        h = h + ATT.self_attention(lp["attn"], cfg, a, positions=positions,
+                                   causal=False, backend=backend)
+        h = _mlp_block(lp, cfg, h)
+    return L.norm_apply(cfg.norm, params["enc_final_norm"], h)
+
+
+def _decoder_layers(params: Params, cfg: ModelConfig, h: torch.Tensor, cache,
+                    self_attention, backend: str) -> torch.Tensor:
+    """The audio decoder's layer walk shared by prefill and decode: self
+    attention (``self_attention(lp, x, i)``, which writes layer i's K/V),
+    cross-attention over the cached encoder K/V, then the MLP."""
+    for i, lp in enumerate(params["dec_layers"]):
+        a = L.norm_apply(cfg.norm, lp["attn_norm"], h)
+        h = h + self_attention(lp["attn"], a, i)
+        c = L.norm_apply(cfg.norm, lp["cross_norm"], h)
+        h = h + ATT.cross_attention(lp["cross"], cfg, c, enc_k=cache["ck"][i],
+                                    enc_v=cache["cv"][i], backend=backend)
+        h = _mlp_block(lp, cfg, h)
+    return h
+
+
+def _prefill_audio(params: Params, cfg: ModelConfig, batch, cache, *,
+                   backend: str):
+    """Encode once, keep each decoder layer's cross K/V in the cache, then
+    prefill the decoder prompt with the learned positions added."""
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    enc_out = encode(params, cfg, batch["frames"], backend=backend)
+    ckv = [ATT.encode_kv(lp["cross"], cfg, enc_out)
+           for lp in params["dec_layers"]]
+    dt = cache["ck"].dtype
+    # replaced, not written in place: the encoder's length is the frames'
+    cache["ck"] = torch.stack([k for k, _ in ckv]).to(dt)
+    cache["cv"] = torch.stack([v for _, v in ckv]).to(dt)
+    h = params["embed"]["emb"][tokens] + params["dec_pos"]["emb"][None, :S]
+    positions = torch.arange(S, dtype=torch.int32,
+                             device=tokens.device)[None].expand(B, S)
+
+    def self_attention(ap, x, i):
+        return ATT.prefill_attention(ap, cfg, x, positions=positions,
+                                     k_cache=cache["k"][i],
+                                     v_cache=cache["v"][i], backend=backend)
+
+    h = _decoder_layers(params, cfg, h, cache, self_attention, backend)
+    cache["pos"].fill_(S)                                   # in place
+    return _logits(params, cfg, h[:, -1]), cache
+
+
 def prefill(params: Params, cfg: ModelConfig, batch, cache, *,
             backend: str = "auto"):
     """Process the whole prompt, fill the cache in place. batch["tokens"]
-    (B, S). Returns (last_logits (B, V), cache)."""
+    (B, S), with batch["vision"] (VLM) or batch["frames"] (audio). Returns
+    (last_logits (B, V), cache)."""
     _check_family(cfg)
+    if cfg.family == "audio":
+        return _prefill_audio(params, cfg, batch, cache, backend=backend)
     tokens = batch["tokens"]
-    B, S = tokens.shape
+    B, S_text = tokens.shape
     h = params["embed"]["emb"][tokens]
-    positions = torch.arange(S, dtype=torch.int32,
-                             device=tokens.device)[None].expand(B, S)
+    if cfg.family == "vlm":
+        h = torch.cat([batch["vision"].to(h.dtype), h], dim=1)
+    S = h.shape[1]
+    n_vis = S - S_text
+    positions = _positions(cfg, B, S, n_vis, tokens.device)
     if cfg.family in ("ssm", "hybrid"):
         def mamba_layer(mp, x, i):
             y, conv_st, ssm_st = SSM.mamba_apply_with_state(mp, cfg, x,
@@ -239,7 +406,8 @@ def prefill(params: Params, cfg: ModelConfig, batch, cache, *,
                 k_cache=cache["k"][i], v_cache=cache["v"][i],
                 window=cfg.sliding_window, backend=backend,
                 **_scales(cache, i))
-            h = _mlp_block(lp, cfg, h)
+            # MoE: capacity dispatch over the whole prompt
+            h = _mlp_block(lp, cfg, h, dropless=False)
     cache["pos"].fill_(S)                                   # in place
     return _logits(params, cfg, h[:, -1]), cache
 
@@ -251,7 +419,7 @@ def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor, cache,
     pos = cache["pos"]                                      # length BEFORE
     kv_len = pos + 1
     h = params["embed"]["emb"][tokens]
-    positions = pos[:, None]
+    positions = _decode_positions(cfg, pos)
     if cfg.family in ("ssm", "hybrid"):
         def mamba_layer(mp, x, i):
             y, conv_st, ssm_st = SSM.mamba_decode_step(
@@ -267,6 +435,15 @@ def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor, cache,
 
         h = _recurrent_layers(params, cfg, h, cache, mamba_layer,
                               shared_attention)
+    elif cfg.family == "audio":
+        h = h + params["dec_pos"]["emb"][pos.long()][:, None, :]
+
+        def self_attention(ap, x, i):
+            return ATT.decode_self_attention(
+                ap, cfg, x, positions=positions, k_cache=cache["k"][i],
+                v_cache=cache["v"][i], kv_len=kv_len, backend=backend)
+
+        h = _decoder_layers(params, cfg, h, cache, self_attention, backend)
     else:
         for i, lp in enumerate(params["layers"]):
             a = L.norm_apply(cfg.norm, lp["attn_norm"], h)
@@ -283,9 +460,10 @@ def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor, cache,
 # ===========================================================================
 # paged KV cache
 # ===========================================================================
-# Families whose serving cache is attention K/V and therefore pageable (the
-# reference's list; moe is not ported yet). SSM and hybrid lanes carry
-# fixed-size recurrent state: paging buys nothing.
+# Families whose serving cache is attention K/V and therefore pageable, the
+# reference's list. SSM and hybrid lanes carry fixed-size recurrent state
+# (paging buys nothing); audio and VLM prompts carry embeddings that the
+# chunked path cannot split.
 PAGED_FAMILIES = ("dense", "moe")
 
 # Pool block 0 is the NULL BLOCK: never allocated, all dead block-table
@@ -367,6 +545,8 @@ def prefill_paged_chunk(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             v_pool=cache["vp"][i], table=table, block_ids=block_ids, rows=rows,
             kv_len=kv_len, q_offset=start, window=cfg.sliding_window,
             backend=backend, **_scales(cache, i, paged=True))
+        # MoE dropless, so a chunk routes as the whole prompt would when
+        # the prompt's capacity never binds (the reduced configs)
         h = _mlp_block(lp, cfg, h)
     cache["pos"][lane] = kv_len[0]                           # in place
     last = h[0, max(n_valid - 1, 0)]

@@ -1,5 +1,8 @@
-"""Inference engine: prefill and decode steps over the model of any ported
-family — dense, SSM, hybrid (counterpart of ``repro/serving/engine.py``).
+"""Inference engine: prefill and decode steps over the model of any
+family — dense, MoE, VLM, SSM, hybrid, audio (counterpart of
+``repro/serving/engine.py``). The VLM and audio families are served by
+``generate`` alone, with ``vision`` or ``frames`` beside ``tokens`` in the
+batch, as in the reference (the batchers and the router pass tokens only).
 
 The engine owns the params of one architecture on one device. It runs on
 ``cuda`` unless the caller passes ``device="cpu"``; with no card and no
@@ -46,6 +49,10 @@ class InferenceEngine:
         if got.type != self.device.type:
             raise ValueError(f"params live on {got}, engine device is "
                              f"{self.device}")
+        if "dec_pos" in params and max_len > params["dec_pos"]["emb"].shape[0]:
+            raise ValueError(f"max_len {max_len} exceeds the decoder's "
+                             f"{params['dec_pos']['emb'].shape[0]} learned "
+                             f"positions")
         self.cfg = cfg
         self.params = params
         self.max_len = max_len
@@ -56,7 +63,9 @@ class InferenceEngine:
     # ------------------------------------------------------------------ api
     def new_cache(self, batch_size: int):
         return M.init_cache(self.cfg, batch_size, self.max_len, self.dtype,
-                            self.device, kv_quant=self.kv_quant)
+                            self.device,
+                            enc_len=self.cfg.encoder_seq_len or None,
+                            kv_quant=self.kv_quant)
 
     def new_paged_cache(self, lanes: int, num_blocks: int, block_size: int):
         """Paged cache sized so one lane can hold up to ``max_len`` context."""
@@ -92,7 +101,8 @@ class InferenceEngine:
                  *, temperature: float = 0.0,
                  generator: Optional[torch.Generator] = None,
                  eos_id: Optional[int] = None) -> GenerationResult:
-        """Greedy (or sampled) generation. All requests share prompt length.
+        """Greedy (or sampled) generation. All requests share prompt length;
+        ``vision`` or ``frames`` in the batch go to prefill with the tokens.
 
         With temperature > 0 and no generator, a generator seeded with 0 on
         the engine's device is used, so sampling is reproducible by default.
@@ -103,7 +113,10 @@ class InferenceEngine:
         tokens = torch.as_tensor(batch["tokens"], dtype=torch.int32,
                                  device=self.device)
         S = tokens.shape[1]
-        logits, cache = self.prefill({"tokens": tokens})
+        # vision / frames embeddings, in the engine's dtype
+        inputs = {k: torch.as_tensor(v, device=self.device).to(self.dtype)
+                  for k, v in batch.items() if k != "tokens"}
+        logits, cache = self.prefill({"tokens": tokens, **inputs})
         out = []
         tok = self._select(logits, temperature, generator)
         out.append(tok)

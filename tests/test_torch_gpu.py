@@ -502,7 +502,8 @@ def test_ssd_scan_wrapper_refuses_and_counts():
 @pytest.mark.gpu
 @pytest.mark.parametrize("arch,kernels", [
     ("mamba2-130m", (SS.ssd_scan,)),
-    ("zamba2-1.2b", (SS.ssd_scan, FA.flash_attention, DA.decode_attention))])
+    ("zamba2-1.2b", (SS.ssd_scan, FA.flash_attention, DA.decode_attention)),
+    ("phi3.5-moe-42b-a6.6b", (FA.flash_attention, DA.decode_attention))])
 def test_serve_entry_point_runs_on_card(arch, kernels, monkeypatch, capsys):
     """``python -m repro_torch.launch.serve --arch <arch>`` with no
     ``--device``: the reduced model on the card, through its kernels."""
@@ -830,3 +831,87 @@ def test_disaggregated_router_on_card():
         assert rr.request.out_tokens == list(solo.tokens[0])
     for cb in router.batchers.values():
         assert cb.free_blocks == cb.total_blocks
+
+
+# ------------------------------------------- the MoE, VLM and audio families
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Sq,Sk", [(1500, 1500), (300, 300), (24, 1500)])
+def test_flash_non_causal_at_whisper_lengths_on_card(dtype, Sq, Sk):
+    """K1 non-causal at whisper-base's heads (8, D 64): the encoder's 1500
+    frames (ragged q and K/V tiles: 1500 = 23 * 64 + 28), a ragged 300, and
+    the cross prefill's short query on 1500 keys; every row is valid."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    q = _randn(gen, (2, 8, Sq, 64), dtype)
+    k = _randn(gen, (2, 8, Sk, 64), dtype)
+    v = _randn(gen, (2, 8, Sk, 64), dtype)
+    torch.testing.assert_close(FA.flash_attention(q, k, v, causal=False),
+                               FA.flash_attention_ref(q, k, v, causal=False),
+                               atol=TOL[dtype], rtol=TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_at_seven_query_heads_per_kv_head_on_card(dtype):
+    """K1 at qwen2-vl-7b's grouping (28 query heads on 4 KV heads, D 128),
+    causal, at a vision-plus-text length."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    q = _randn(gen, (1, 28, 283, 128), dtype)
+    k = _randn(gen, (1, 4, 283, 128), dtype)
+    v = _randn(gen, (1, 4, 283, 128), dtype)
+    torch.testing.assert_close(FA.flash_attention(q, k, v),
+                               FA.flash_attention_ref(q, k, v),
+                               atol=TOL[dtype], rtol=TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("block_k", [32, 64, 128])
+@pytest.mark.parametrize("Hq,Hkv,D", [(28, 4, 128), (8, 8, 64)])
+def test_decode_at_the_new_groupings_on_card(dtype, block_k, Hq, Hkv, D):
+    """K2 at G = 7 (two passes of R = 4 and 3 rows: qwen2-vl-7b) and at
+    G = 1, D 64 (whisper-base), kv_len on both sides of a split edge."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    edges = [1, block_k - 1, block_k, block_k + 1, 2 * block_k + 9]
+    smax = edges[-1] + 3
+    q = _randn(gen, (len(edges), Hq, 1, D), dtype)
+    k = _randn(gen, (len(edges), Hkv, smax, D), dtype)
+    v = _randn(gen, (len(edges), Hkv, smax, D), dtype)
+    kvl = torch.tensor(edges, dtype=torch.int32, device="cuda")
+    torch.testing.assert_close(
+        DA.decode_attention(q, k, v, kvl, block_k=block_k),
+        DA.decode_attention_ref(q, k, v, kvl), atol=TOL[dtype],
+        rtol=TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,key", [("qwen2-vl-7b", "vision"),
+                                      ("whisper-base", "frames"),
+                                      ("phi3.5-moe-42b-a6.6b", None)])
+def test_family_engine_kernel_path_matches_plain_on_card(arch, key):
+    """A reduced model of each new family on the card, float32: the engine's
+    kernel path (K1, K2) gives the plain path's greedy tokens, and launches
+    both kernels."""
+    _need_card()
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.serving.engine import InferenceEngine
+    cfg = get_config(arch).reduced()
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    params = M.init_params(cfg, gen, torch.float32, "cuda")
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 9), generator=gen,
+                                     device="cuda", dtype=torch.int32)}
+    if key is not None:
+        n = cfg.num_vision_tokens if key == "vision" else cfg.encoder_seq_len
+        batch[key] = torch.randn((2, n, cfg.d_model), generator=gen,
+                                 device="cuda")
+    before = (FA.flash_attention.launches, DA.decode_attention.launches)
+    toks = {b: InferenceEngine(cfg, params, max_len=64, backend=b,
+                               device="cuda").generate(batch, 8).tokens
+            for b in ("auto", "ref")}
+    assert FA.flash_attention.launches > before[0]
+    assert DA.decode_attention.launches > before[1]
+    assert (toks["auto"] == toks["ref"]).all()

@@ -197,9 +197,13 @@ def test_bf16_weights_cross_through_float32():
         np.asarray(jp["layers"]["attn"]["q"]["w"][1], np.float32))
 
 
-@pytest.mark.parametrize("arch", ["phi3.5-moe-42b-a6.6b", "whisper-base",
-                                  "qwen2-vl-7b"])
-def test_other_families_raise(arch):
-    """The families still to port (ROADMAP Queue 1 item 8) refuse."""
-    with pytest.raises(NotImplementedError, match="not ported"):
-        M.init_cache(get_config(arch).reduced(), 1, 8)
+def test_unknown_family_raises():
+    """A family no config names raises the reference's ValueError."""
+    cfg = dataclasses.replace(get_config("smollm-360m").reduced(),
+                              family="retrieval")
+    with pytest.raises(ValueError, match="retrieval"):
+        M.init_cache(cfg, 1, 8)
+    with pytest.raises(ValueError, match="retrieval"):
+        JM.init_params(dataclasses.replace(jax_config("smollm-360m").reduced(),
+                                           family="retrieval"),
+                       jax.random.PRNGKey(0))
