@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving path once on one NVIDIA card.
+"""Drive the PyTorch/CUDA port's serving and training paths once on one
+NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -12,7 +13,9 @@ Phases, each printing its own lines; any failure exits non-zero:
                instantiations labelled K4) and K5 v2 (three passes) kernel
                with its registers, shared memory and spills; a spill in K1
                v3, in a bf16 K5 v2 kernel or in a four-row bf16 K4 split
-               kernel (the int8 serving paths', D 64 and 128) fails);
+               kernel (the int8 serving paths', D 64 and 128) fails;
+               K1-bwd's three kernels are listed too, and a spill there
+               fails);
   3. kernels — K1 flash prefill, K2 dense decode and K3 paged decode held
                against their plain versions at mistral-7b's attention shapes,
                and K1 and K2 at zamba2-1.2b's shared block's (32 heads, no
@@ -50,6 +53,20 @@ Phases, each printing its own lines; any failure exits non-zero:
                same function (SDPA, K/V expanded when grouped), and the
                card's bound (K4 also beside the gather composition; K1 by
                tile, K2, K3 and K4 by block_k, K5 by pass);
+  3t. K1-bwd — the gradient of K1 against torch.autograd of its plain
+               version, dq, dk and dv each within f32 2e-5 / bf16 2e-2
+               times max(1, |ref|inf), both dtypes, at smollm-360m's
+               training shape (B 8, 15 on 5 heads, D 64, S 128 and 512, and a
+               ragged 300), mistral-7b's (32 on 8, D 128, S 512, window 17
+               and 4096), whisper-base's encoder (8 heads, D 64, 1500²,
+               non-causal) and cross shape (24 on 1500), qwen2-vl-7b's G = 7
+               (768²) and grok-1's heads with a softcap of 30; a second call
+               gives the same bits; then, at smollm's training shape in
+               float32, K1-bwd timed beside its plain version and the
+               backward of one SDPA call (K/V expanded; a yardstick the
+               port never calls), and K1's float32 forward (v2) beside its
+               plain version and SDPA; bounds at the float32 peak (67e12,
+               no TF32);
   3c. tune   — the port's autotuner on the card (backend "cuda") over its
                default shapes and the int8 serving bucket b4c1024; the cache
                is written under build/ and not installed;
@@ -73,6 +90,13 @@ Phases, each printing its own lines; any failure exits non-zero:
                6 layers) through the engine with 256 seeded vision / 1500
                seeded frame embeddings; K1 and K2 (and K3 for the MoE)
                must launch;
+  4t. train parity — smollm-360m at full width cut to 2 layers (B 8, S
+               512) and whisper-base in full (B 2, 1500 seeded frames, 64
+               tokens), float32, the same seeded weights: the kernel path (K1
+               under its autograd Function, K1-bwd) against the plain path:
+               the loss within 1e-5, every gradient leaf non-zero and within
+               1e-4 of max(1, |g|inf), the losses of 5 AdamW steps within
+               1e-4; K1 and K1-bwd launch on the kernel path only;
   5. serve   — full mistral-7b (32 layers, bf16, random weights from a seed)
                behind FleetRouter(capacity_aware) over paper_fleet(): 8
                requests through paged batchers and 2 through the engine-only
@@ -124,6 +148,16 @@ Phases, each printing its own lines; any failure exits non-zero:
                tokens (K2, and K1 as many times as the encoder layers and
                cross prefills, non-causal, and the decoder prefills,
                causal, need).
+  10. train  — full smollm-360m (32 layers, float32, random weights from
+               the seed) through ``repro_torch.launch.train``'s code path:
+               batch 8 of 512 tokens of the arithmetic stream, 20 steps, lr
+               3e-3, warmup 5; every logged loss and gradient norm finite
+               and the last loss below the first; tok/s, wall, peak memory,
+               and K1 / K1-bwd launches (32 each per step); one step with
+               --remat (loss within 1e-5 of the plain step; K1 twice per
+               layer, K1-bwd once); the checkpoint launch.train wrote,
+               restored on the card bit for bit; a mamba2-130m train step
+               raises on the card, naming K5's missing backward.
 
 Every serve phase collects garbage and restarts the peak memory count
 first, and prints the bytes still allocated. Phases 5, 6 and 9 run with no
@@ -133,7 +167,9 @@ The line before the last is one JSON object with each kernel's numbers, one
 row per kernel and serving path: ``name@arch`` is the kernel on that model's
 path (plain ``name`` is mistral-7b's for K1-K4 — K3's launches from phase
 5, K4's from phase 7 — and mamba2-130m's for K5; ``@zamba2-1.2b`` rows
-count phase 6, the whisper-base, qwen2-vl-7b and phi3.5-moe rows phase 9),
+count phase 6, the whisper-base, qwen2-vl-7b and phi3.5-moe rows phase 9;
+``flash_attention_bwd`` and ``flash_attention@smollm-360m`` count phase
+10's 20 steps and carry phase 3t's float32 times and errors),
 with that path's launches and its own shapes' times and errors; the
 last line is {"ok": true, "device": {...}}. Without a CUDA device, or
 without the repository beside this file, it exits non-zero and prints no
@@ -224,7 +260,7 @@ def phase_build():
             f"spill stores/loads {spill} bytes")
         if k4:
             int8.append(k4)
-        if spill != "0/0" and ("flash_fwd_wgmma" in kern or (
+        if spill != "0/0" and ("flash_fwd_wgmma" in kern or "bwd_" in kern or (
                 "ssd_" in kern and "__nv_bfloat16" in kern) or (
                 k4 and k4[0] == "bf16" and k4[2] == 4)):
             spills.append(kern)
@@ -236,13 +272,14 @@ def phase_build():
         say("  ptxas: library found on disk, not rebuilt; no compiler "
             "report in this run")
     if spills:
-        fail(f"ptxas reports spills in K1 v3, bf16 K5 v2 or a four-row bf16 "
-             f"K4 split kernel: {spills}")
+        fail(f"ptxas reports spills in K1 v3, K1-bwd, bf16 K5 v2 or a "
+             f"four-row bf16 K4 split kernel: {spills}")
 
 
 REPORTED_KERNELS = ("flash_fwd_wgmma", "decode_split_kernel",
                     "decode_combine_kernel", "ssd_chunk_state_kernel",
-                    "ssd_state_scan_kernel", "ssd_output_kernel")
+                    "ssd_state_scan_kernel", "ssd_output_kernel",
+                    "bwd_stats_kernel", "bwd_dkdv_kernel", "bwd_dq_kernel")
 
 
 def _int8_split(kern):
@@ -2140,6 +2177,343 @@ def phase_disagg_serve(torch, card):
     return launches
 
 
+# --------------------------------------------------------- phases 3t, 4t, 10
+PEAK_F32_FLOPS = 67e12        # H100 SXM float32 on the CUDA cores, no TF32
+SMOLLM = "smollm-360m"        # 15 query heads on 5 KV heads, D 64
+SHQ, SHKV, SD = 15, 5, 64
+TRAIN_B, TRAIN_S = 8, 512     # phase 10's batch
+GRAD_TOL = 1e-4               # a gradient leaf, relative to max(1, |g|inf)
+
+
+def _bound_f32(flops, nbytes):
+    t_ops = flops / PEAK_F32_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def _pairs(sq, sk, causal, window):
+    """(q, k) pairs a mask keeps (q_offset 0)."""
+    n = 0
+    for i in range(sq):
+        hi = min(i + 1, sk) if causal else sk
+        lo = max(0, i - window + 1) if window is not None else 0
+        n += max(0, hi - lo)
+    return n
+
+
+def check_flash_bwd(torch):
+    """Phase 3t: K1-bwd against autograd of its plain version at the
+    training paths' shapes, both dtypes, dq, dk and dv each within
+    TOL·max(1, |ref|inf); a second call gives the same bits. Returns the
+    worst float32 and bfloat16 errors."""
+    from repro_torch.kernels import flash_attention as FA
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 19)
+    # (label, B, Hq, Hkv, Sq, Sk, D, kwargs)
+    cases = [
+        (SMOLLM, TRAIN_B, SHQ, SHKV, 128, 128, SD, dict(causal=True)),
+        (SMOLLM, TRAIN_B, SHQ, SHKV, 512, 512, SD, dict(causal=True)),
+        (f"{SMOLLM} ragged", 2, SHQ, SHKV, 300, 300, SD, dict(causal=True)),
+        ("mistral-7b", 1, HQ, HKV, 512, 512, D, dict(causal=True, window=17)),
+        ("mistral-7b", 1, HQ, HKV, 512, 512, D,
+         dict(causal=True, window=4096)),
+        (f"{WHISPER} encoder", 1, WHQ, WHQ, WENC, WENC, WD,
+         dict(causal=False)),
+        (f"{WHISPER} cross", 1, WHQ, WHQ, 24, WENC, WD, dict(causal=False)),
+        (QWEN, 1, QHQ, QHKV, 768, 768, D, dict(causal=True)),
+        ("grok-1 softcap", 1, 48, 8, 256, 256, D,
+         dict(causal=True, softcap=30.0)),
+    ]
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+    for dt in (torch.float32, torch.bfloat16):
+        name = str(dt).split(".")[1]
+        for label, B, hq, hkv, Sq, Sk, d, kw in cases:
+            q = _rand(torch, gen, (B, hq, Sq, d), dt)
+            k = _rand(torch, gen, (B, hkv, Sk, d), dt)
+            v = _rand(torch, gen, (B, hkv, Sk, d), dt)
+            do = _rand(torch, gen, (B, hq, Sq, d), dt)
+            out = FA.flash_attention(q, k, v, **kw)
+            got = FA.flash_attention_bwd(q, k, v, out, do, **kw)
+            again = FA.flash_attention_bwd(q, k, v, out, do, **kw)
+            want = FA.flash_attention_bwd_ref(q, k, v, do, **kw)
+            torch.cuda.synchronize()
+            same = all(torch.equal(a, b) for a, b in zip(got, again))
+            errs, ok = [], same
+            for g, w in zip(got, want):
+                err = (g.float() - w.float()).abs().max().item()
+                lim = TOL[name] * max(1.0, w.float().abs().max().item())
+                errs.append(f"{err:.2e}/{lim:.1e}")
+                ok = ok and err <= lim
+                worst[name] = max(worst[name], err)
+            say(f"  3t K1-bwd {name:8s} {label:18s} B={B} Hq={hq} Hkv={hkv} "
+                f"Sq={Sq:4d} Sk={Sk:4d} D={d:3d} {kw}: dq/dk/dv err/limit "
+                f"{' '.join(errs)} deterministic={same} "
+                f"{'ok' if ok else 'MISMATCH'}")
+            if not ok:
+                fail(f"phase 3t: K1-bwd disagrees with its plain version or "
+                     f"is not deterministic ({label}, {name}, {kw})")
+    return worst
+
+
+def time_flash_train(torch):
+    """Phase 3t times at smollm-360m's training shape (B 8, 15 on 5 heads,
+    D 64, S 512, causal), float32: K1-bwd beside its plain version and the
+    backward of one SDPA call on K/V expanded to the query heads (a
+    yardstick the port never calls), each the mean of 20 eager calls
+    between CUDA events; and K1's float32 forward (v2) beside its plain
+    version and SDPA, by CUDA-graph replay as phase 3. Bounds at the
+    float32 peak without TF32."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as FA
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 20)
+    f32 = torch.float32
+    B, S = TRAIN_B, TRAIN_S
+    q = _rand(torch, gen, (B, SHQ, S, SD), f32)
+    k = _rand(torch, gen, (B, SHKV, S, SD), f32)
+    v = _rand(torch, gen, (B, SHKV, S, SD), f32)
+    do = _rand(torch, gen, (B, SHQ, S, SD), f32)
+    out = FA.flash_attention(q, k, v)
+    fwd_flops = 4 * B * SHQ * SD * _pairs(S, S, True, None)
+    io = (2 * SHQ * S * SD + 2 * SHKV * S * SD) * 4 * B     # q, o; k, v
+    shape = (f"B={B} Hq={SHQ} Hkv={SHKV} Sq=Sk={S} D={SD} float32 causal")
+    rows = {}
+    # SDPA's backward alone: one forward kept, its graph retained
+    leaves = [t.clone().requires_grad_(True) for t in
+              (q, k.repeat_interleave(SHQ // SHKV, 1),
+               v.repeat_interleave(SHQ // SHKV, 1))]
+    with torch.enable_grad():
+        sdpa_out = F.scaled_dot_product_attention(*leaves, is_causal=True)
+    b_ms, b_by = _bound_f32(2.5 * fwd_flops,
+                            io + (SHQ * S * SD * 2 + 2 * SHKV * S * SD) * 4 * B)
+    rows["flash_attention_bwd"] = dict(
+        ms=_eager_ms(torch, lambda: FA.flash_attention_bwd(q, k, v, out, do)),
+        plain_ms=_eager_ms(torch, lambda: FA.flash_attention_bwd_ref(
+            q, k, v, do)),
+        library_ms=_eager_ms(torch, lambda: torch.autograd.grad(
+            sdpa_out, leaves, do, retain_graph=True)),
+        bound_ms=b_ms, bound_by=b_by, shape=shape)
+    b_ms, b_by = _bound_f32(fwd_flops, io)
+    rows[f"flash_attention@{SMOLLM}"] = dict(
+        ms=time_ms(torch, lambda: FA.flash_attention(q, k, v)),
+        plain_ms=time_ms(torch, lambda: FA.flash_attention_ref(q, k, v)),
+        library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
+            q, leaves[1].detach(), leaves[2].detach(), is_causal=True)),
+        bound_ms=b_ms, bound_by=b_by, shape=shape)
+    err = (FA.flash_attention(q, k, v) - FA.flash_attention_ref(q, k, v)) \
+        .abs().max().item()
+    rows[f"flash_attention@{SMOLLM}"]["err"] = err
+    if err > TOL["float32"]:
+        fail(f"phase 3t: K1 float32 at smollm's training shape: {err:.3e}")
+    for name, r in rows.items():
+        say(f"  time {name:34s} {r['shape']}: ms={r['ms']:.4f} "
+            f"plain_ms={r['plain_ms']:.4f} library_ms={r['library_ms']:.4f} "
+            f"bound_ms={r['bound_ms']:.5f} ({r['bound_by']})")
+    return rows
+
+
+def phase_kernels_train(torch):
+    say("== phase 3t: K1-bwd vs its plain version, and the training shape's "
+        "times")
+    worst = check_flash_bwd(torch)
+    times = time_flash_train(torch)
+    return worst, times
+
+
+def _train_counts():
+    from repro_torch.kernels import flash_attention as FA
+    return {"flash_attention": FA.flash_attention.launches,
+            "flash_attention_bwd": FA.flash_attention_bwd.launches}
+
+
+def _zero_train_counts():
+    from repro_torch.kernels import flash_attention as FA
+    FA.flash_attention.launches = 0
+    FA.flash_attention_bwd.launches = 0
+
+
+def _tree_err(torch, got, want):
+    """Worst leaf error over tol·max(1, |want|inf), and whether every leaf
+    of ``got`` is non-zero."""
+    from repro_torch.training import optimizer as OPT
+    worst, nonzero = 0.0, True
+    for g, w in zip(OPT.tree_leaves(got), OPT.tree_leaves(want)):
+        scale = max(1.0, w.abs().max().item())
+        worst = max(worst, (g - w).abs().max().item() / scale)
+        nonzero = nonzero and g.abs().sum().item() > 0
+    return worst, nonzero
+
+
+def _train_parity(torch, arch, cfg, batches, steps=5):
+    """Kernel path against plain path on the same seeded weights: the
+    loss, every gradient leaf, then ``steps`` AdamW steps' losses."""
+    from repro_torch.models import model as M
+    from repro_torch.training import optimizer as OPT
+    from repro_torch.training import train as T
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    params = M.init_params(cfg, gen, torch.float32, "cuda",
+                           max_positions=max(cfg.max_seq_len, 512))
+    opt = OPT.AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=steps)
+    res = {}
+    for backend in ("auto", "ref"):
+        _zero_train_counts()
+        loss, _, grads = T.loss_and_grads(params, cfg, batches[0],
+                                          backend=backend)
+        step = T.make_train_step(cfg, opt, backend=backend)
+        p, st, losses = params, OPT.init_state(params), []
+        for b in batches[:steps]:
+            p, st, m = step(p, st, b)
+            losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        res[backend] = (float(loss), grads, losses, _train_counts())
+        del p, st
+    (la, ga, sa, ca), (lr_, gr, sr, cr) = res["auto"], res["ref"]
+    gerr, nonzero = _tree_err(torch, ga, gr)
+    serr = max(abs(a - b) for a, b in zip(sa, sr))
+    say(f"  4t {arch}: loss kernel {la:.7f} plain {lr_:.7f} "
+        f"(|diff| {abs(la - lr_):.3e}, limit 1e-5); worst gradient leaf "
+        f"{gerr:.3e} of max(1, |g|inf) (limit {GRAD_TOL}); every leaf "
+        f"non-zero {nonzero}; {steps} AdamW steps' losses kernel "
+        f"{[round(x, 6) for x in sa]} worst |diff| {serr:.3e} (limit 1e-4); "
+        f"kernel-path launches {ca}, plain-path {cr}")
+    if abs(la - lr_) > 1e-5 or gerr > GRAD_TOL or not nonzero or serr > 1e-4:
+        fail(f"phase 4t: {arch} kernel path differs from the plain path")
+    if ca["flash_attention"] == 0 or ca["flash_attention_bwd"] == 0 or \
+            cr["flash_attention_bwd"] != 0:
+        fail(f"phase 4t: {arch} did not train through K1 and K1-bwd")
+    del params
+    torch.cuda.empty_cache()
+    return max(abs(la - lr_), serr), gerr
+
+
+def phase_train_parity(torch):
+    """Phase 4t: smollm-360m at full width cut to 2 layers (B 8, S 512) and
+    whisper-base in full (B 2, 1500 seeded frames, 64 tokens), float32."""
+    from repro_torch.configs import get_config
+    from repro_torch.training import data as TD
+    say(f"== phase 4t: training parity, {SMOLLM} full width, 2 layers, "
+        f"float32, kernel path vs plain path")
+    cfg = dataclasses.replace(get_config(SMOLLM), num_layers=2)
+    batches = list(TD.arithmetic_stream(cfg, TRAIN_B, TRAIN_S, 5, seed=SEED,
+                                        device="cuda"))
+    out = [_train_parity(torch, SMOLLM, cfg, batches)]
+    say(f"== phase 4t: training parity, {WHISPER} in full, float32")
+    cfg = get_config(WHISPER)
+    batches = list(TD.arithmetic_stream(cfg, 2, 64, 5, seed=SEED,
+                                        device="cuda"))
+    out.append(_train_parity(torch, WHISPER, cfg, batches))
+    return out
+
+
+def phase_train(torch, card):
+    """Phase 10: full smollm-360m (32 layers, float32) trained 20 steps
+    through ``repro_torch.launch.train``'s code path; one --remat step; a
+    checkpoint round trip; mamba2-130m refuses to train on the card."""
+    import math
+    import shutil
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as LT
+    from repro_torch.training import checkpoint as CKPT
+    from repro_torch.training import data as TD
+    from repro_torch.training import optimizer as OPT
+    from repro_torch.training import train as T
+    say(f"== phase 10: train {SMOLLM} (32 layers, float32) through "
+        f"repro_torch.launch.train: B {TRAIN_B}, S {TRAIN_S}, 20 steps")
+    _fresh_peak(torch)
+    ck_dir = ROOT / "build" / "chip_smoke_train"
+    shutil.rmtree(ck_dir, ignore_errors=True)
+    ck = str(ck_dir / "smollm.npz")
+    args = LT.parse_args(["--arch", SMOLLM, "--full-config", "--steps", "20",
+                          "--batch-size", str(TRAIN_B), "--seq-len",
+                          str(TRAIN_S), "--lr", "3e-3", "--data",
+                          "arithmetic", "--seed", str(SEED), "--device",
+                          "cuda", "--checkpoint", ck])
+    lines = []
+    _zero_train_counts()
+    t0 = time.perf_counter()
+    res = LT.run(args, log=lambda m: (lines.append(m), say(f"  {m}")))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _train_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    logged = [l for l in lines if l.startswith("step")]
+    losses = [float(l.split("loss")[1].split()[0]) for l in logged]
+    gnorms = [float(l.split("gnorm")[1].split()[0]) for l in logged]
+    cfg = res["cfg"]
+    n_layers = cfg.num_layers
+    say(f"  10 {SMOLLM}: {len(logged)} logged steps, loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f}, tok/s {res['tok_s']:.1f} over the steps "
+        f"({res['seconds']:.3f} s), wall with build and checkpoint "
+        f"{wall:.3f} s, max_memory_allocated_gb={peak:.3f}, launches "
+        f"{launches} (expected {20 * n_layers} each) card={card}")
+    if len(logged) != 20 or not all(math.isfinite(x) for x in losses + gnorms):
+        fail("phase 10: a loss or gradient norm is not finite")
+    if not losses[-1] < losses[0]:
+        fail("phase 10: the loss did not fall")
+    if launches != {"flash_attention": 20 * n_layers,
+                    "flash_attention_bwd": 20 * n_layers}:
+        fail(f"phase 10: launches {launches}, not {20 * n_layers} each")
+    main_launches = dict(launches)
+
+    # one step's loss and gradients with --remat against without
+    params = res["params"]
+    batch = next(TD.arithmetic_stream(cfg, TRAIN_B, TRAIN_S, 1, seed=SEED,
+                                      device="cuda"))
+    out = {}
+    for remat in (False, True):
+        _zero_train_counts()
+        loss, _, grads = T.loss_and_grads(params, cfg, batch, remat=remat)
+        torch.cuda.synchronize()
+        out[remat] = (float(loss), _train_counts())
+        if not remat:
+            nonzero = all(g.abs().sum().item() > 0
+                          for g in OPT.tree_leaves(grads))
+        del grads
+    diff = abs(out[True][0] - out[False][0])
+    say(f"  10 --remat step: loss {out[True][0]:.7f} vs {out[False][0]:.7f} "
+        f"(|diff| {diff:.3e}, limit 1e-5); launches with remat "
+        f"{out[True][1]}, without {out[False][1]}; every gradient leaf "
+        f"non-zero {nonzero}")
+    if diff > 1e-5 or not nonzero or out[True][1] != {
+            "flash_attention": 2 * n_layers, "flash_attention_bwd": n_layers}:
+        fail("phase 10: the remat step differs or its launches are not "
+             "2x K1 and 1x K1-bwd per layer")
+
+    # the checkpoint launch.train wrote, restored on the card
+    t1 = time.perf_counter()
+    zeros = OPT.tree_map(torch.zeros_like, params)
+    rp, rs, meta = CKPT.restore(ck, zeros, OPT.init_state(zeros))
+    same = all(torch.equal(a, b) for a, b in zip(
+        OPT.tree_leaves(rp) + OPT.tree_leaves(rs),
+        OPT.tree_leaves(params) + OPT.tree_leaves(res["state"])))
+    size = sum(f.stat().st_size for f in ck_dir.iterdir()) / 1e9
+    say(f"  10 checkpoint: {size:.3f} GB written, restored on the card bit "
+        f"for bit {same} (step {int(rs['step'])}, meta {meta}) in "
+        f"{time.perf_counter() - t1:.2f} s")
+    shutil.rmtree(ck_dir, ignore_errors=True)
+    if not same or int(rs["step"]) != 20:
+        fail("phase 10: the checkpoint does not restore bit for bit")
+    del params, rp, rs, zeros, res
+
+    # SSM: no K5 backward yet, so a train step raises on the card
+    from repro_torch.models import model as M
+    mcfg = get_config("mamba2-130m")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    mp = M.init_params(mcfg, gen, torch.float32, "cuda")
+    step = T.make_train_step(mcfg, OPT.AdamWConfig())
+    mb = next(TD.arithmetic_stream(mcfg, 2, 64, 1, seed=SEED, device="cuda"))
+    try:
+        step(mp, OPT.init_state(mp), mb)
+    except RuntimeError as e:
+        say(f"  10 mamba2-130m train step on the card raises: {e}")
+        if "K5's backward" not in str(e):
+            fail("phase 10: mamba2-130m raised, but not K5's message")
+    else:
+        fail("phase 10: mamba2-130m trained on the card without K5's "
+             "backward")
+    del mp
+    torch.cuda.empty_cache()
+    return main_launches
+
+
 def main() -> None:
     if not (ROOT / "src" / "repro_torch" / "kernels").is_dir():
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it from "
@@ -2153,11 +2527,13 @@ def main() -> None:
     from repro_torch.kernels import autotune as AT
     phase_build()
     errs, times = phase_kernels(torch)
+    bwd_worst, train_times = phase_kernels_train(torch)
     phase_autotune(torch, card)
     phase_parity(torch)
     phase_parity_ssm(torch)
     phase_parity_int8(torch)
     phase_parity_families(torch)
+    phase_train_parity(torch)
     launches, bf16_tokens = phase_serve(torch, card)
     launches.update(phase_serve_ssm(torch, card))
     int8 = phase_serve_int8(torch, card, bf16_tokens)
@@ -2167,6 +2543,13 @@ def main() -> None:
     phase_disagg_parity(torch)
     phase_disagg_serve(torch, card)
     launches.update(phase_serve_families(torch, card))
+    train_launches = phase_train(torch, card)
+    launches["flash_attention_bwd"] = train_launches["flash_attention_bwd"]
+    launches[f"flash_attention@{SMOLLM}"] = train_launches["flash_attention"]
+    errs["flash_attention_bwd"] = bwd_worst["float32"]
+    errs[f"flash_attention@{SMOLLM}"] = \
+        train_times[f"flash_attention@{SMOLLM}"]["err"]
+    times.update(train_times)
 
     sources = {"flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                                    "src/repro/kernels/flash_attention.py:98"),
@@ -2179,7 +2562,11 @@ def main() -> None:
                    "src/repro_torch/csrc/decode_attention.cu",
                    "src/repro/kernels/decode_attention.py:195"),
                "ssd_scan": ("src/repro_torch/csrc/ssm_scan.cu",
-                            "src/repro/kernels/ssm_scan.py:73")}
+                            "src/repro/kernels/ssm_scan.py:73"),
+               "flash_attention_bwd": (
+                   "src/repro_torch/csrc/flash_attention_bwd.cu",
+                   "src/repro/kernels/flash_attention.py:98 (its gradient; "
+                   "no Pallas counterpart)")}
     rows = []
     for kname in ("flash_attention", "decode_attention",
                   "paged_decode_attention", "paged_decode_attention_int8",
@@ -2188,7 +2575,8 @@ def main() -> None:
                   f"flash_attention@{WHISPER}", f"flash_attention@{QWEN}",
                   f"flash_attention@{PHI}", f"decode_attention@{QWEN}",
                   f"decode_attention@{WHISPER}",
-                  f"paged_decode_attention@{PHI}"):
+                  f"paged_decode_attention@{PHI}", "flash_attention_bwd",
+                  f"flash_attention@{SMOLLM}"):
         src, replaces = sources[kname.split("@")[0]]
         t = times[kname]
         rows.append({"name": kname, "route": "cuda", "source": src,

@@ -36,6 +36,9 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "repro_flash_attention": [_I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                               _I, _F, _F, _I, _I, _I, _I, _P],
+    "repro_flash_attention_bwd": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                  _P, _I, _I, _I, _I, _I, _I, _I, _F, _F,
+                                  _P],
     "repro_decode_attention": [_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                _I, _F, _F, _I, _P],
     "repro_paged_decode_attention": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _I,

@@ -7,6 +7,13 @@ flash_attention`` (body ``_flash_kernel``). The CUDA source is
 by TMA), float32 runs v2 (float32 FMA on the CUDA cores, since TF32 would
 miss the float32 tolerance). Its header note says how the TPU grid's
 sequential K axis became a loop inside one block, and what bounds it.
+
+K1-bwd, the gradient of K1's function, has no Pallas counterpart: the
+reference's K1 has no custom_vjp, so JAX trains on its plain path. Here it
+is ``csrc/flash_attention_bwd.cu`` (three passes: row statistics, dK and dV
+per KV head, dQ), reached only through ``FlashAttention``, a
+``torch.autograd.Function`` whose forward is K1: ``kernels.ops`` routes
+there when grad mode is on and an input requires grad.
 """
 from __future__ import annotations
 
@@ -130,3 +137,107 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 flash_attention.launches = 0
+
+
+def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            dout: torch.Tensor, *, causal: bool = True,
+                            window: Optional[int] = None,
+                            softcap: Optional[float] = None):
+    """The plain version of K1-bwd: ``torch.autograd.grad`` of
+    ``flash_attention_ref`` in float32, the gradients cast to the inputs'
+    dtypes. Returns (dq, dk, dv). A row with no valid key gets mean(V)
+    forward here, so its dO reaches dV; in the kernel it is 0 and has no
+    gradient (training's masks leave every row a key)."""
+    with torch.enable_grad():
+        qf, kf, vf = (t.detach().float().requires_grad_(True)
+                      for t in (q, k, v))
+        out = flash_attention_ref(qf, kf, vf, causal=causal, window=window,
+                                  softcap=softcap)
+        dq, dk, dv = torch.autograd.grad(out, (qf, kf, vf), dout.float())
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, dout: torch.Tensor, *,
+                        causal: bool = True, window: Optional[int] = None,
+                        softcap: Optional[float] = None):
+    """dq, dk, dv of K1's function at (q, k, v), given its output ``out``
+    and the output's gradient ``dout`` (both (B, Hq, Sq, D)).
+
+    On a CUDA tensor this launches K1-bwd's three passes (one count) or
+    raises; a CPU tensor takes the plain version. q_offset is 0 and every
+    key is valid: training sets neither (``FlashAttention`` refuses them).
+    """
+    if q.device.type == "cpu":
+        return flash_attention_bwd_ref(q, k, v, dout, causal=causal,
+                                       window=window, softcap=softcap)
+    check_inputs("flash_attention_bwd", q, k, v, out, dout)
+    B, Hq, Sq, D = q.shape
+    Bk, Hkv, Sk, Dk = k.shape
+    if v.shape != k.shape or Bk != B or Dk != D or Hq % Hkv \
+            or out.shape != q.shape or dout.shape != q.shape:
+        raise ValueError(f"flash_attention_bwd: shapes q {tuple(q.shape)}, "
+                         f"k {tuple(k.shape)}, v {tuple(v.shape)}, out "
+                         f"{tuple(out.shape)}, dout {tuple(dout.shape)}")
+    if window is not None and window < 1:
+        raise ValueError(f"flash_attention_bwd: window must be >= 1, got "
+                         f"{window}")
+    if softcap is not None and softcap <= 0:
+        raise ValueError(f"flash_attention_bwd: softcap must be > 0, got "
+                         f"{softcap}")
+    if q.numel() == 0 or k.numel() == 0:
+        return (torch.zeros_like(q), torch.zeros_like(k),
+                torch.zeros_like(v))
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    # scratch of pass 0: each row's lse and rowsum(dO * O), float32
+    lse = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+    delta = torch.empty_like(lse)
+    code = _build.library().repro_flash_attention_bwd(
+        DTYPE_CODES[q.dtype], D, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        out.data_ptr(), dout.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), lse.data_ptr(), delta.data_ptr(), B, Hq, Hkv, Sq, Sk,
+        int(causal), window or 0, float(softcap or 0.0), float(D ** -0.5),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(code, "flash_attention_bwd")
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0
+
+
+class FlashAttention(torch.autograd.Function):
+    """K1 with its gradient: the forward launches K1 and keeps (q, k, v,
+    out); the backward launches K1-bwd. Under
+    ``torch.utils.checkpoint`` the forward runs twice and the backward
+    once."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap, block_q, block_k):
+        out = flash_attention(q, k, v, causal=causal, window=window,
+                              softcap=softcap, block_q=block_q,
+                              block_k=block_k)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.kw = dict(causal=causal, window=window, softcap=softcap)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, dout.contiguous(),
+                                         **ctx.kw)
+        return dq, dk, dv, None, None, None, None, None
+
+
+def flash_attention_grad(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                         causal: bool = True, window: Optional[int] = None,
+                         softcap: Optional[float] = None, q_offset: int = 0,
+                         block_q: int = 64, block_k: int = 64
+                         ) -> torch.Tensor:
+    """K1 through ``FlashAttention``, so that autograd reaches K1-bwd. The
+    backward takes q_offset 0 only: training never sets it."""
+    if q_offset:
+        raise ValueError(f"flash_attention: q_offset {q_offset} has no "
+                         f"gradient kernel (K1-bwd takes q_offset 0)")
+    return FlashAttention.apply(q, k, v, causal, window, softcap, block_q,
+                                block_k)

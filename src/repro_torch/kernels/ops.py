@@ -3,8 +3,11 @@
 
 ``backend="auto"`` (the default): a CPU tensor runs the plain version in
 ``ref``; a CUDA tensor launches the Hopper kernel, or raises if the kernel
-does not take its inputs. There is no fallback from the kernel to the plain
-version and no environment override. ``backend="ref"`` asks for the plain
+does not take its inputs. Under grad mode with an input that requires
+grad, ``flash_attention`` goes through K1's autograd Function (backward:
+K1-bwd), and every other kernel raises on a CUDA tensor: it has no
+backward kernel, and its output would carry no gradient. There is no
+fallback from the kernel to the plain version and no environment override. ``backend="ref"`` asks for the plain
 version on any device: the on-card comparison of the kernel path with the
 plain path uses it.
 
@@ -39,6 +42,20 @@ def _use_kernel(x: torch.Tensor, backend: str) -> bool:
     return backend == "auto" and x.device.type == "cuda"
 
 
+def _wants_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(
+        isinstance(t, torch.Tensor) and t.requires_grad for t in tensors)
+
+
+def _refuse_grad(name: str, *tensors, why: str = "") -> None:
+    """A kernel with no backward kernel never runs where autograd would need
+    one: its output would carry no gradient, silently."""
+    if _wants_grad(*tensors):
+        raise RuntimeError(
+            f"{name}: this kernel has no backward on the card{why}; call it "
+            f"under torch.no_grad(), or run on the CPU (plain path)")
+
+
 def _tuned(kernel: str, use_kernel: bool, **dims: int):
     return _at.lookup(kernel, "cuda" if use_kernel else "ref",
                       _at.shape_bucket(kernel, **dims))
@@ -61,6 +78,11 @@ def flash_attention(q, k, v, *, causal: bool = True,
     bk = block_kv if block_kv is not None else tuned.get("block_kv")
     if bk is not None:
         kw["block_k"] = int(bk)
+    if _wants_grad(q, k, v):
+        # K1 under its autograd Function, so the backward runs K1-bwd
+        return _fa.flash_attention_grad(q, k, v, causal=causal, window=window,
+                                        softcap=softcap, q_offset=q_offset,
+                                        **kw)
     return _fa.flash_attention(q, k, v, causal=causal, window=window,
                                softcap=softcap, q_offset=q_offset, **kw)
 
@@ -75,6 +97,7 @@ def decode_attention(q, k_cache, v_cache, kv_len, *,
         # ignored, as in the reference package
         return _ref.decode_attention(q, k_cache, v_cache, kv_len=kv_len,
                                      window=window, softcap=softcap)
+    _refuse_grad("decode_attention", q, k_cache, v_cache)
     tuned = _tuned("decode_attention", True, b=q.shape[0],
                    c=k_cache.shape[2])
     bk = block_kv if block_kv is not None else tuned.get("block_kv")
@@ -93,6 +116,7 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, kv_len, *,
         return _ref.paged_decode_attention(q, k_pool, v_pool, block_tables,
                                            kv_len=kv_len, window=window,
                                            softcap=softcap)
+    _refuse_grad("paged_decode_attention", q, k_pool, v_pool)
     return _da.paged_decode_attention(q, k_pool, v_pool, block_tables, kv_len,
                                       window=window, softcap=softcap)
 
@@ -135,6 +159,8 @@ def paged_decode_attention_quant(q, k_pool, v_pool, k_scale_pool,
         return _ref.paged_decode_attention_quant_fused(
             q, k_pool, v_pool, k_scale_pool, v_scale_pool, block_tables,
             kv_len=kv_len, window=window, softcap=softcap)
+    _refuse_grad("paged_decode_attention_quant", q, k_scale_pool,
+                 v_scale_pool)
     return _da.paged_decode_attention_int8(
         q, k_pool, v_pool, k_scale_pool, v_scale_pool, block_tables, kv_len,
         window=window, softcap=softcap)
@@ -151,6 +177,9 @@ def ssd_scan(x, dt, A, Bmat, Cmat, *, chunk: Optional[int] = None,
     chunk = int(chunk)
     if not use:
         return _ref.ssd_scan_chunked(x, dt, A, Bmat, Cmat, chunk=chunk)
+    _refuse_grad("ssd_scan", x, dt, A, Bmat, Cmat,
+                 why=" (K5's backward kernel is not written yet: SSM and "
+                     "hybrid models train on the CPU)")
     return _ss.ssd_scan(x, dt, A, Bmat, Cmat, chunk=chunk)
 
 

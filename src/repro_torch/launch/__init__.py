@@ -1,1 +1,1 @@
-"""Entry points."""
+"""Entry points: serving and training."""

@@ -1,10 +1,10 @@
 """Model assembly for every assigned family: dense, MoE, VLM, SSM, hybrid
-and audio (counterpart of ``repro/models/model.py``; the training forward
-is not ported yet).
+and audio (counterpart of ``repro/models/model.py``).
 
 Public API (``cfg`` is a frozen ``ModelConfig``):
 
     init_params(cfg, generator, dtype, device, max_positions=) -> params
+    forward_train(params, cfg, batch, remat=)                -> (logits, aux_loss)
     init_cache(cfg, batch_size, max_len, dtype, device, enc_len=, kv_quant=)
     prefill(params, cfg, batch, cache)                       -> (last_logits, cache)
     decode_step(params, cfg, tokens, cache)                  -> (logits, cache)
@@ -22,7 +22,8 @@ reference.
 Params are the reference's pytree with each stacked layer subtree
 (``layers``, ``enc_layers``, ``dec_layers``) split into a list of
 per-layer dicts; a Python loop over that list takes the place of
-``layer_scan``. Caches are dicts of tensors updated in place (the
+``layer_scan`` (and ``torch.utils.checkpoint`` per layer, with ``remat``,
+of ``jax.checkpoint``). Caches are dicts of tensors updated in place (the
 functions still return them, so call sites read like the reference). The
 paged cache holds attention K/V only (dense and MoE): SSM and hybrid lanes
 carry fixed-size recurrent state, and VLM and audio prompts carry
@@ -31,13 +32,14 @@ With ``kv_quant`` the dense, MoE and VLM families' K/V are int8 with
 per-row float32 scales (``k_scale``/``v_scale``, ``kp_scale``/``vp_scale``);
 every step function takes the int8 branch when the cache holds those keys,
 as the reference does. MoE layers route with capacity in ``prefill`` and
-dropless everywhere else, as the reference's do.
+``forward_train`` and dropless everywhere else, as the reference's do.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as ATT
@@ -207,6 +209,115 @@ def _hybrid_segments(cfg: ModelConfig):
         segs.append((s, e, every > 0 and e - s == every))
         s = e
     return segs
+
+
+# ===========================================================================
+# forward (train / full sequence)
+# ===========================================================================
+def _maybe_remat(fn, remat: bool):
+    """``fn`` itself, or ``fn`` recomputed in the backward (its activations
+    not kept), as ``jax.checkpoint`` does for the reference's layer body."""
+    if not remat:
+        return fn
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False)
+
+
+def _dense_block(lp, cfg: ModelConfig, h, positions, backend: str):
+    """One dense, MoE or VLM layer: (h, aux). MoE routes with capacity
+    dispatch, as the reference's training forward does."""
+    a = L.norm_apply(cfg.norm, lp["attn_norm"], h)
+    h = h + ATT.self_attention(lp["attn"], cfg, a, positions=positions,
+                               causal=True, window=cfg.sliding_window,
+                               backend=backend)
+    m = L.norm_apply(cfg.norm, lp["mlp_norm"], h)
+    if cfg.family == "moe":
+        y, aux = MOE.moe_apply(lp["moe"], cfg, m, dropless=False)
+        return h + y, aux
+    return (h + L.mlp_apply(lp["mlp"], m, cfg.activation),
+            torch.zeros((), dtype=torch.float32, device=h.device))
+
+
+def _mamba_block(lp, cfg: ModelConfig, h, backend: str):
+    x = L.norm_apply(cfg.norm, lp["norm"], h)
+    return h + SSM.mamba_apply(lp["mamba"], cfg, x, backend=backend)
+
+
+def _shared_attn_block(params, cfg: ModelConfig, h, positions, backend: str):
+    lp = params["shared_attn"]
+    a = L.norm_apply(cfg.norm, lp["attn_norm"], h)
+    h = h + ATT.self_attention(lp["attn"], cfg, a, positions=positions,
+                               causal=True, window=cfg.sliding_window,
+                               backend=backend)
+    return _mlp_block(lp, cfg, h)
+
+
+def forward_train(params: Params, cfg: ModelConfig,
+                  batch: Dict[str, torch.Tensor], *, backend: str = "auto",
+                  remat: bool = False):
+    """Full-sequence forward. Returns (logits (B, S_total, V), aux_loss
+    float32 scalar). VLM logits keep the vision positions (S_total = n_vis
+    + S), as the reference's do; aux is the MoE load-balance loss summed
+    over the layers, 0 for the other families. ``remat`` recomputes each
+    layer in the backward (the audio encoder is not rematerialised, as in
+    the reference)."""
+    _check_family(cfg)
+    tokens = batch["tokens"]
+    if cfg.family == "audio":
+        enc_out = encode(params, cfg, batch["frames"], backend=backend)
+        return _decode_train(params, cfg, tokens, enc_out, backend=backend,
+                             remat=remat)
+    B, S_text = tokens.shape
+    h = params["embed"]["emb"][tokens]
+    if cfg.family == "vlm":
+        h = torch.cat([batch["vision"].to(h.dtype), h], dim=1)
+    S = h.shape[1]
+    positions = _positions(cfg, B, S, S - S_text, tokens.device)
+    zero = torch.zeros((), dtype=torch.float32, device=h.device)
+
+    if cfg.family in KV_FAMILIES:
+        block = _maybe_remat(
+            lambda lp, x: _dense_block(lp, cfg, x, positions, backend), remat)
+        auxs = []
+        for lp in params["layers"]:
+            h, aux = block(lp, h)
+            auxs.append(aux)
+        return _logits(params, cfg, h), torch.stack(auxs).sum()
+
+    block = _maybe_remat(lambda lp, x: _mamba_block(lp, cfg, x, backend),
+                         remat)
+    for a, b, attn_after in _hybrid_segments(cfg):
+        for lp in params["layers"][a:b]:
+            h = block(lp, h)
+        if attn_after:                              # hybrid only
+            h = _shared_attn_block(params, cfg, h, positions, backend)
+    return _logits(params, cfg, h), zero
+
+
+def _decode_train(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+                  enc_out: torch.Tensor, *, backend: str, remat: bool):
+    """The audio decoder over a whole token sequence: causal self attention
+    (no window), cross-attention over the encoder's output (non-causal, K1
+    with Sq != Sk on the card), then the MLP, per layer."""
+    B, S = tokens.shape
+    h = params["embed"]["emb"][tokens] + params["dec_pos"]["emb"][None, :S]
+    positions = torch.arange(S, dtype=torch.int32,
+                             device=tokens.device)[None].expand(B, S)
+
+    def layer(lp, x):
+        a = L.norm_apply(cfg.norm, lp["attn_norm"], x)
+        x = x + ATT.self_attention(lp["attn"], cfg, a, positions=positions,
+                                   causal=True, backend=backend)
+        c = L.norm_apply(cfg.norm, lp["cross_norm"], x)
+        ek, ev = ATT.encode_kv(lp["cross"], cfg, enc_out)
+        x = x + ATT.cross_attention(lp["cross"], cfg, c, enc_k=ek, enc_v=ev,
+                                    backend=backend)
+        return _mlp_block(lp, cfg, x)
+
+    layer = _maybe_remat(layer, remat)
+    for lp in params["dec_layers"]:
+        h = layer(lp, h)
+    return _logits(params, cfg, h), torch.zeros((), dtype=torch.float32,
+                                                device=h.device)
 
 
 # ===========================================================================

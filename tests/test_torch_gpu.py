@@ -915,3 +915,144 @@ def test_family_engine_kernel_path_matches_plain_on_card(arch, key):
     assert FA.flash_attention.launches > before[0]
     assert DA.decode_attention.launches > before[1]
     assert (toks["auto"] == toks["ref"]).all()
+
+
+# ------------------------------------------------------------ K1-bwd
+def _bwd_close(got, want, dtype):
+    """Each gradient within TOL·max(1, ‖ref‖∞) of the plain version."""
+    for g, w in zip(got, want):
+        lim = TOL[dtype] * max(1.0, w.float().abs().max().item())
+        assert (g.float() - w.float()).abs().max().item() <= lim
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,hq,hkv,Sq,Sk,D,kw", [
+    (2, 6, 2, 100, 100, 64, dict(causal=True)),              # G = 3
+    (1, 7, 1, 130, 130, 128, dict(causal=True)),             # G = 7
+    (1, 4, 4, 150, 150, 64, dict(causal=True, window=17)),
+    (1, 4, 2, 96, 96, 128, dict(causal=True, softcap=30.0, window=33)),
+    (2, 4, 4, 24, 150, 64, dict(causal=False)),              # cross
+    (1, 4, 4, 150, 150, 64, dict(causal=False))])
+def test_flash_bwd_matches_plain_on_card(dtype, B, hq, hkv, Sq, Sk, D, kw):
+    """K1-bwd against autograd of the plain version at reduced shapes, and
+    the same bits on a second call (no atomics)."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(Sq + hq)
+    q = _randn(gen, (B, hq, Sq, D), dtype)
+    k = _randn(gen, (B, hkv, Sk, D), dtype)
+    v = _randn(gen, (B, hkv, Sk, D), dtype)
+    do = _randn(gen, (B, hq, Sq, D), dtype)
+    out = FA.flash_attention(q, k, v, **kw)
+    before = FA.flash_attention_bwd.launches
+    got = FA.flash_attention_bwd(q, k, v, out, do, **kw)
+    again = FA.flash_attention_bwd(q, k, v, out, do, **kw)
+    assert FA.flash_attention_bwd.launches == before + 2
+    assert all(g.dtype == dtype for g in got)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    _bwd_close(got, FA.flash_attention_bwd_ref(q, k, v, do, **kw), dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_function_gradients_through_ops_on_card(dtype):
+    """ops.flash_attention under grad goes through the autograd Function:
+    one K1 and one K1-bwd launch, gradients equal to the plain path's.
+    Without grad it launches K1 alone, as on the serving path."""
+    from repro_torch.kernels import ops
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    leaves = [_randn(gen, s, dtype).requires_grad_(True) for s in
+              ((2, 6, 70, 64), (2, 2, 70, 64), (2, 2, 70, 64))]
+    do = _randn(gen, (2, 6, 70, 64), dtype)
+    n1, nb = FA.flash_attention.launches, FA.flash_attention_bwd.launches
+    out = ops.flash_attention(*leaves, causal=True, window=40)
+    assert out.grad_fn is not None
+    got = torch.autograd.grad(out, leaves, do)
+    assert FA.flash_attention.launches == n1 + 1
+    assert FA.flash_attention_bwd.launches == nb + 1
+    ref_out = ops.flash_attention(*leaves, causal=True, window=40,
+                                  backend="ref")
+    want = torch.autograd.grad(ref_out, leaves, do)
+    _bwd_close(got, want, dtype)
+    with torch.no_grad():
+        ops.flash_attention(*leaves, causal=True)
+    assert FA.flash_attention.launches == n1 + 2
+    assert FA.flash_attention_bwd.launches == nb + 1
+    with pytest.raises(ValueError, match="q_offset"):
+        ops.flash_attention(*leaves, q_offset=3)
+
+
+@pytest.mark.gpu
+def test_kernels_without_a_backward_raise_under_grad():
+    """K2, K3, K4 and K5 refuse a CUDA input that requires grad under grad
+    mode (their outputs would carry no gradient); K5's message names its
+    missing backward. Under no_grad they run."""
+    from repro_torch.kernels import ops
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    q = _randn(gen, (1, 4, 1, 64), torch.float32).requires_grad_(True)
+    kc = _randn(gen, (1, 2, 32, 64), torch.float32)
+    kv = torch.tensor([20], dtype=torch.int32, device="cuda")
+    pool = kc.reshape(1, 2, 2, 16, 64).permute(0, 2, 1, 3, 4) \
+        .reshape(2, 2, 16, 64).contiguous()
+    tables = torch.tensor([[0, 1]], dtype=torch.int32, device="cuda")
+    p8 = torch.zeros((2, 2, 16, 64), dtype=torch.int8, device="cuda")
+    sc = torch.full((2, 2, 16, 1), 0.01, device="cuda")
+    calls = [
+        lambda: ops.decode_attention(q, kc, kc, kv),
+        lambda: ops.paged_decode_attention(q, pool, pool, tables, kv),
+        lambda: ops.paged_decode_attention_quant(q, p8, p8, sc, sc, tables,
+                                                 kv, impl="fused"),
+        lambda: ops.paged_decode_attention_quant(q, p8, p8, sc, sc, tables,
+                                                 kv, impl="gather")]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no backward"):
+            call()
+        with torch.no_grad():
+            assert call().shape == q.shape
+    inp = list(_ssd_inputs(gen, 1, 2, 40, 32, torch.float32, 32))
+    inp[0].requires_grad_(True)
+    with pytest.raises(RuntimeError, match="K5's backward"):
+        ops.ssd_scan(*inp, chunk=32)
+    with torch.no_grad():
+        y, _ = ops.ssd_scan(*inp, chunk=32)
+    assert y.shape == inp[0].shape
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["smollm-360m", "whisper-base"])
+def test_reduced_train_step_on_card_matches_plain(arch):
+    """Reduced train steps on the card, float32, kernel path (K1 and
+    K1-bwd) against the plain path: loss within 1e-5, every gradient leaf
+    non-zero and within 1e-4·max(1, ‖g‖∞), and the loss after two AdamW
+    steps within 1e-4."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.training import data as D
+    from repro_torch.training import optimizer as OPT
+    from repro_torch.training import train as T
+    _need_card()
+    cfg = get_config(arch).reduced()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = M.init_params(cfg, gen, torch.float32, "cuda",
+                           max_positions=256)
+    batch = next(D.arithmetic_stream(cfg, 2, 64, 1, seed=0, device="cuda"))
+    opt = OPT.AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=4)
+    out = {}
+    for backend in ("auto", "ref"):
+        before = FA.flash_attention_bwd.launches
+        loss, _, grads = T.loss_and_grads(params, cfg, batch, backend=backend)
+        step = T.make_train_step(cfg, opt, backend=backend)
+        p2, s2, _ = step(params, OPT.init_state(params), batch)
+        _, _, m = step(p2, s2, batch)
+        launched = FA.flash_attention_bwd.launches - before
+        assert launched > 0 if backend == "auto" else launched == 0
+        out[backend] = loss, grads, m["loss"]
+    assert abs(float(out["auto"][0]) - float(out["ref"][0])) < 1e-5
+    for g, w in zip(OPT.tree_leaves(out["auto"][1]),
+                    OPT.tree_leaves(out["ref"][1])):
+        assert g.abs().sum().item() > 0
+        lim = 1e-4 * max(1.0, w.abs().max().item())
+        assert (g - w).abs().max().item() <= lim
+    assert abs(float(out["auto"][2]) - float(out["ref"][2])) < 1e-4

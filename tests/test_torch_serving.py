@@ -167,6 +167,11 @@ def test_port_imports_neither_jax_nor_the_reference_package():
                 if name.split(".")[0] in ("jax", "jaxlib", "repro"):
                     bad.append(f"{path.relative_to(ROOT)}:{node.lineno} {name}")
     assert len(_port_files()) > 30
+    # training joined the port: its modules and entry point are held too
+    names = {str(p.relative_to(ROOT)) for p in _port_files()}
+    assert {f"src/repro_torch/training/{m}.py" for m in
+            ("optimizer", "data", "checkpoint", "train")} <= names
+    assert "src/repro_torch/launch/train.py" in names
     assert not bad, bad
 
 
@@ -175,7 +180,9 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.serving.router, repro_torch.launch.serve, "
             "repro_torch.core, repro_torch.core.simulator, "
             "repro_torch.core.fleet, repro_torch.core.fleet_vec, "
-            "repro_torch.core.carbon, repro_torch.core.region; "
+            "repro_torch.core.carbon, repro_torch.core.region, "
+            "repro_torch.training.train, repro_torch.training.checkpoint, "
+            "repro_torch.training.data, repro_torch.launch.train; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'repro')))")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
