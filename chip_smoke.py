@@ -14,8 +14,8 @@ Phases, each printing its own lines; any failure exits non-zero:
                with its registers, shared memory and spills; a spill in K1
                v3, in a bf16 K5 v2 kernel or in a four-row bf16 K4 split
                kernel (the int8 serving paths', D 64 and 128) fails;
-               K1-bwd's three kernels are listed too, and a spill there
-               fails);
+               K1-bwd's three kernels and K5-bwd's six are listed too, and
+               a spill there fails);
   3. kernels — K1 flash prefill, K2 dense decode and K3 paged decode held
                against their plain versions at mistral-7b's attention shapes,
                and K1 and K2 at zamba2-1.2b's shared block's (32 heads, no
@@ -65,8 +65,20 @@ Phases, each printing its own lines; any failure exits non-zero:
                float32, K1-bwd timed beside its plain version and the
                backward of one SDPA call (K/V expanded; a yardstick the
                port never calls), and K1's float32 forward (v2) beside its
-               plain version and SDPA; bounds at the float32 peak (67e12,
-               no TF32);
+               plain version and SDPA; then K5-bwd, the gradient of K5,
+               against torch.autograd of its plain version, dx, ddt, dA, dB
+               and dC each within f32 2e-5 / bf16 5e-2 times
+               max(1, |ref|inf), both dtypes, with and without a
+               final-state gradient, at mamba2-130m's training shape (B 8,
+               S 512, H 24, P 64, N 128, chunk 128), zamba2-1.2b's (B 2, H
+               64, N 64), each ragged (S 300), and the reduced one (P = N =
+               32, chunk 32, S 64 and 45); a second call gives the same
+               bits; then, in float32, K5-bwd timed beside its plain
+               version at both training shapes (no single library call:
+               library_ms null) and by kernel (a torch.profiler trace),
+               and K5's float32 forward beside its plain version and by
+               pass at mamba2's; bounds at the float32 peak (67e12, no
+               TF32);
   3c. tune   — the port's autotuner on the card (backend "cuda") over its
                default shapes and the int8 serving bucket b4c1024; the cache
                is written under build/ and not installed;
@@ -91,12 +103,16 @@ Phases, each printing its own lines; any failure exits non-zero:
                seeded frame embeddings; K1 and K2 (and K3 for the MoE)
                must launch;
   4t. train parity — smollm-360m at full width cut to 2 layers (B 8, S
-               512) and whisper-base in full (B 2, 1500 seeded frames, 64
-               tokens), float32, the same seeded weights: the kernel path (K1
-               under its autograd Function, K1-bwd) against the plain path:
-               the loss within 1e-5, every gradient leaf non-zero and within
-               1e-4 of max(1, |g|inf), the losses of 5 AdamW steps within
-               1e-4; K1 and K1-bwd launch on the kernel path only;
+               512), whisper-base in full (B 2, 1500 seeded frames, 64
+               tokens), mamba2-130m at full width cut to 2 layers (B 8, S
+               512) and zamba2-1.2b at full width cut to 7 layers (one
+               segment with its shared attention block, then a tail; B 2, S
+               512), float32, the same seeded weights: the kernel path (K1
+               and K5 under their autograd Functions, K1-bwd and K5-bwd)
+               against the plain path: the loss within 1e-5, every gradient
+               leaf non-zero and within 1e-4 of max(1, |g|inf), the losses
+               of 5 AdamW steps within 1e-4; the model's kernels launch on
+               the kernel path only;
   5. serve   — full mistral-7b (32 layers, bf16, random weights from a seed)
                behind FleetRouter(capacity_aware) over paper_fleet(): 8
                requests through paged batchers and 2 through the engine-only
@@ -148,16 +164,20 @@ Phases, each printing its own lines; any failure exits non-zero:
                tokens (K2, and K1 as many times as the encoder layers and
                cross prefills, non-causal, and the decoder prefills,
                causal, need).
-  10. train  — full smollm-360m (32 layers, float32, random weights from
-               the seed) through ``repro_torch.launch.train``'s code path:
-               batch 8 of 512 tokens of the arithmetic stream, 20 steps, lr
-               3e-3, warmup 5; every logged loss and gradient norm finite
-               and the last loss below the first; tok/s, wall, peak memory,
-               and K1 / K1-bwd launches (32 each per step); one step with
-               --remat (loss within 1e-5 of the plain step; K1 twice per
-               layer, K1-bwd once); the checkpoint launch.train wrote,
-               restored on the card bit for bit; a mamba2-130m train step
-               raises on the card, naming K5's missing backward.
+  10. train  — full smollm-360m (32 layers) and full mamba2-130m (24
+               layers), float32, random weights from the seed, through
+               ``repro_torch.launch.train``'s code path: batch 8 of 512
+               tokens of the arithmetic stream, 20 steps, lr 3e-3, warmup
+               5; every logged loss and gradient norm finite and the last
+               loss below the first; tok/s, wall, peak memory, and the
+               launches (smollm K1 / K1-bwd 32 each per step, mamba2 K5 /
+               K5-bwd 24 each); one step with --remat on each (loss within
+               1e-5 of the plain step; the forward kernel twice per layer,
+               the backward one once); smollm's checkpoint, restored on the
+               card bit for bit; then full zamba2-1.2b (38 layers, ~24 GB
+               of parameters and AdamW state), batch 2 of 512, 5 steps:
+               finite losses and gradient norms, K5 / K5-bwd 38 launches a
+               step and K1 / K1-bwd 6.
 
 Every serve phase collects garbage and restarts the peak memory count
 first, and prints the bytes still allocated. Phases 5, 6 and 9 run with no
@@ -169,7 +189,10 @@ path (plain ``name`` is mistral-7b's for K1-K4 — K3's launches from phase
 5, K4's from phase 7 — and mamba2-130m's for K5; ``@zamba2-1.2b`` rows
 count phase 6, the whisper-base, qwen2-vl-7b and phi3.5-moe rows phase 9;
 ``flash_attention_bwd`` and ``flash_attention@smollm-360m`` count phase
-10's 20 steps and carry phase 3t's float32 times and errors),
+10's smollm-360m steps, ``ssd_scan_bwd`` and ``ssd_scan@mamba2-130m-train``
+(K5's float32 forward) its mamba2-130m steps and ``ssd_scan_bwd@zamba2-1.2b``
+its zamba2-1.2b steps, and each carries phase 3t's float32 times and
+errors at its model's training shape),
 with that path's launches and its own shapes' times and errors; the
 last line is {"ok": true, "device": {...}}. Without a CUDA device, or
 without the repository beside this file, it exits non-zero and prints no
@@ -272,14 +295,15 @@ def phase_build():
         say("  ptxas: library found on disk, not rebuilt; no compiler "
             "report in this run")
     if spills:
-        fail(f"ptxas reports spills in K1 v3, K1-bwd, bf16 K5 v2 or a "
-             f"four-row bf16 K4 split kernel: {spills}")
+        fail(f"ptxas reports spills in K1 v3, K1-bwd, K5-bwd, bf16 K5 v2 or "
+             f"a four-row bf16 K4 split kernel: {spills}")
 
 
 REPORTED_KERNELS = ("flash_fwd_wgmma", "decode_split_kernel",
                     "decode_combine_kernel", "ssd_chunk_state_kernel",
                     "ssd_state_scan_kernel", "ssd_output_kernel",
-                    "bwd_stats_kernel", "bwd_dkdv_kernel", "bwd_dq_kernel")
+                    "bwd_stats_kernel", "bwd_dkdv_kernel", "bwd_dq_kernel",
+                    "ssd_bwd_")
 
 
 def _int8_split(kern):
@@ -2182,6 +2206,7 @@ PEAK_F32_FLOPS = 67e12        # H100 SXM float32 on the CUDA cores, no TF32
 SMOLLM = "smollm-360m"        # 15 query heads on 5 KV heads, D 64
 SHQ, SHKV, SD = 15, 5, 64
 TRAIN_B, TRAIN_S = 8, 512     # phase 10's batch
+ZAMBA_TRAIN_B = 2             # phase 10's zamba2-1.2b batch (of TRAIN_S)
 GRAD_TOL = 1e-4               # a gradient leaf, relative to max(1, |g|inf)
 
 
@@ -2310,24 +2335,197 @@ def time_flash_train(torch):
     return rows
 
 
+# (label, B, H, S, P, N, chunk) of K5-bwd's checks: mamba2-130m's and
+# zamba2-1.2b's training shapes (phase 10's batches), ragged, and the
+# reduced configs'
+SSD_TRAIN = {"mamba2-130m": (TRAIN_B, 24, TRAIN_S, 64, 128, 128),
+             ZAMBA: (ZAMBA_TRAIN_B, 64, TRAIN_S, 64, 64, 128)}
+SSD_BWD_CASES = [
+    ("mamba2-130m", *SSD_TRAIN["mamba2-130m"]),
+    ("mamba2-130m ragged", 2, 24, 300, 64, 128, 128),
+    (ZAMBA, *SSD_TRAIN[ZAMBA]),
+    (f"{ZAMBA} ragged", 2, 64, 300, 64, 64, 128),
+    ("reduced", 2, 16, 64, 32, 32, 32),
+    ("reduced ragged", 2, 16, 45, 32, 32, 32),
+]
+
+
+def _ssd_bwd_inputs(torch, gen, dtype, B, H, S, P, N, L, with_final):
+    """K5's inputs, dy, dfinal (or None) and the workspace a K5 call on
+    them filled."""
+    from repro_torch.kernels import ssm_scan as SS
+    inp = _ssd_inputs(torch, gen, dtype, B, H, S, P, N)
+    dy = _rand(torch, gen, (B, H, S, P), dtype)
+    dfinal = _rand(torch, gen, (B, H, P, N), torch.float32) \
+        if with_final else None
+    ws = SS.workspace(inp[0], N, L)
+    SS.launch_passes(*inp, chunk=L, ws=ws)
+    return inp, dy, dfinal, ws
+
+
+def check_ssd_bwd(torch):
+    """Phase 3t: K5-bwd against autograd of its plain version at the
+    training shapes, ragged S and the reduced shape, with and without a
+    final-state gradient, both dtypes, dx, ddt, dA, dB and dC each within
+    SSD_TOL·max(1, |ref|inf); a second call gives the same bits. Returns
+    the worst float32 error per kernels-line row."""
+    from repro_torch.kernels import ssm_scan as SS
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 21)
+    worst = {"ssd_scan_bwd": 0.0, f"ssd_scan_bwd@{ZAMBA}": 0.0}
+    for dt in (torch.float32, torch.bfloat16):
+        name = str(dt).split(".")[1]
+        for label, B, H, S, P, N, L in SSD_BWD_CASES:
+            for with_final in (False, True):
+                inp, dy, dfinal, ws = _ssd_bwd_inputs(
+                    torch, gen, dt, B, H, S, P, N, L, with_final)
+                got = SS.ssd_scan_bwd(*inp, dy, dfinal, chunk=L, ws=ws)
+                again = SS.ssd_scan_bwd(*inp, dy, dfinal, chunk=L, ws=ws)
+                want = SS.ssd_scan_bwd_ref(*inp, dy, dfinal, chunk=L)
+                torch.cuda.synchronize()
+                same = all(torch.equal(a, b) for a, b in zip(got, again))
+                errs, ok = [], same
+                for g, w in zip(got, want):
+                    err = (g.float() - w.float()).abs().max().item()
+                    lim = SSD_TOL[name] * max(1.0,
+                                              w.float().abs().max().item())
+                    errs.append(f"{err:.2e}/{lim:.1e}")
+                    ok = ok and err <= lim
+                    key = f"ssd_scan_bwd@{ZAMBA}" if label.startswith(ZAMBA) \
+                        else "ssd_scan_bwd"
+                    if name == "float32" and not label.startswith("reduced"):
+                        worst[key] = max(worst[key], err)
+                say(f"  3t K5-bwd {name:8s} {label:18s} B={B} H={H} S={S:3d} "
+                    f"P={P} N={N:3d} chunk={L:3d} dfinal={with_final!s:5s}: "
+                    f"dx/ddt/dA/dB/dC err/limit {' '.join(errs)} "
+                    f"deterministic={same} {'ok' if ok else 'MISMATCH'}")
+                if not ok:
+                    fail(f"phase 3t: K5-bwd disagrees with its plain version "
+                         f"or is not deterministic ({label}, {name}, "
+                         f"dfinal={with_final})")
+                del inp, dy, dfinal, ws, got, again, want
+    torch.cuda.empty_cache()
+    return worst
+
+
+def _ssd_pairs(S, L):
+    """Causal (i, j) pairs of the chunks of S steps."""
+    full, tail = divmod(S, L)
+    return full * L * (L + 1) // 2 + tail * (tail + 1) // 2
+
+
+def _bwd_kernel_split(torch, fn, reps=5):
+    """Device ms per call of each of K5-bwd's six kernels that ``fn``
+    launches, from torch.profiler's CUDA trace over ``reps`` calls."""
+    import re
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    split = {}
+    for e in prof.key_averages():
+        m = re.search(r"ssd_bwd_(\w+?)_kernel", e.key)
+        if m:
+            split[m.group(1)] = e.device_time_total / reps / 1e3
+    return split
+
+
+def time_ssd_train(torch):
+    """Phase 3t times, float32, at mamba2-130m's training shape (B 8, S 512,
+    H 24, P 64, N 128, chunk 128; no final-state gradient, as in training)
+    and zamba2-1.2b's (B 2, H 64, N 64): K5-bwd beside its plain version,
+    each the mean of 20 eager calls between CUDA events; and at mamba2's,
+    K5's float32 forward beside its plain version by CUDA-graph replay, as
+    phase 3, and by pass; K5-bwd's six kernels' device times from a
+    torch.profiler trace. No single PyTorch call computes either:
+    library_ms is null.
+    Bounds at the float32 peak without TF32."""
+    from repro_torch.kernels import ssm_scan as SS
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 22)
+    rows = {}
+    for arch, (B, H, S, P, N, L) in SSD_TRAIN.items():
+        inp, dy, _, ws = _ssd_bwd_inputs(torch, gen, torch.float32, B, H, S,
+                                         P, N, L, False)
+        nc = -(-S // L)
+        pairs = _ssd_pairs(S, L)
+        # per (lane, head): C·Bᵀ, dY·Xᵀ, dx, dB, dC over the causal pairs;
+        # dY·Cᵀ, G B, Gᵀ x, S_in C and S_inᵀ dY over every step
+        flops = 2 * B * H * (pairs * (3 * N + 2 * P) + 5 * S * P * N)
+        nbytes = 4 * (3 * B * H * S * P + 4 * B * S * N + 2 * B * H * S
+                      + 2 * H + B * H * nc * (P * N + 1))
+        b_ms, b_by = _bound_f32(flops, nbytes)
+        key = "ssd_scan_bwd" if arch == "mamba2-130m" else \
+            f"ssd_scan_bwd@{arch}"
+        shape = f"{arch} B={B} H={H} S={S} P={P} N={N} chunk={L} float32"
+        rows[key] = dict(
+            ms=_eager_ms(torch, lambda: SS.ssd_scan_bwd(*inp, dy, chunk=L,
+                                                        ws=ws)),
+            plain_ms=_eager_ms(torch, lambda: SS.ssd_scan_bwd_ref(
+                *inp, dy, chunk=L)),
+            library_ms=None, bound_ms=b_ms, bound_by=b_by, shape=shape,
+            kernels=_bwd_kernel_split(torch, lambda: SS.ssd_scan_bwd(
+                *inp, dy, chunk=L, ws=ws)))
+        if arch == "mamba2-130m":
+            fwd_flops = 2 * B * H * (pairs * (N + P) + 2 * S * P * N)
+            fwd_bytes = 4 * (2 * B * H * S * P + 2 * B * S * N + B * H * S
+                             + H + B * H * P * N)
+            b_ms, b_by = _bound_f32(fwd_flops, fwd_bytes)
+            y, fs = SS.ssd_scan(*inp, chunk=L)
+            want_y, want_fs = SS.ssd_scan_ref(*inp, chunk=L)
+            err = max((y - want_y).abs().max().item(),
+                      (fs - want_fs).abs().max().item())
+            if err > SSD_TOL["float32"]:
+                fail(f"phase 3t: K5 float32 at mamba2's training shape: "
+                     f"{err:.3e}")
+            rows[f"ssd_scan@{arch}-train"] = dict(
+                ms=time_ms(torch, lambda: SS.ssd_scan(*inp, chunk=L)),
+                plain_ms=time_ms(torch, lambda: SS.ssd_scan_ref(*inp,
+                                                                chunk=L)),
+                library_ms=None, bound_ms=b_ms, bound_by=b_by, shape=shape,
+                err=err, tiles=_ssd_passes(torch, SS, inp, N, L))
+        del inp, dy, ws
+    torch.cuda.empty_cache()
+    for name, r in rows.items():
+        say(f"  time {name:34s} {r['shape']}: ms={r['ms']:.4f} "
+            f"plain_ms={r['plain_ms']:.4f} library_ms=null "
+            f"bound_ms={r['bound_ms']:.5f} ({r['bound_by']})")
+        if "tiles" in r:
+            say(f"  tiles {name:33s} ms by pass: " + " ".join(
+                f"{t}={ms:.4f}" for t, ms in r["tiles"].items()))
+        if "kernels" in r:
+            say(f"  profile {name:31s} device ms by kernel (torch.profiler): "
+                + " ".join(f"{k}={ms:.4f}" for k, ms in r["kernels"].items())
+                + f" sum={sum(r['kernels'].values()):.4f}")
+    return rows
+
+
 def phase_kernels_train(torch):
-    say("== phase 3t: K1-bwd vs its plain version, and the training shape's "
-        "times")
+    say("== phase 3t: K1-bwd and K5-bwd vs their plain versions, and the "
+        "training shapes' times")
     worst = check_flash_bwd(torch)
     times = time_flash_train(torch)
+    worst.update(check_ssd_bwd(torch))
+    times.update(time_ssd_train(torch))
     return worst, times
 
 
-def _train_counts():
+def _train_kernels():
     from repro_torch.kernels import flash_attention as FA
-    return {"flash_attention": FA.flash_attention.launches,
-            "flash_attention_bwd": FA.flash_attention_bwd.launches}
+    from repro_torch.kernels import ssm_scan as SS
+    return {"flash_attention": FA.flash_attention,
+            "flash_attention_bwd": FA.flash_attention_bwd,
+            "ssd_scan": SS.ssd_scan, "ssd_scan_bwd": SS.ssd_scan_bwd}
+
+
+def _train_counts():
+    return {k: f.launches for k, f in _train_kernels().items()}
 
 
 def _zero_train_counts():
-    from repro_torch.kernels import flash_attention as FA
-    FA.flash_attention.launches = 0
-    FA.flash_attention_bwd.launches = 0
+    for f in _train_kernels().values():
+        f.launches = 0
 
 
 def _tree_err(torch, got, want):
@@ -2342,9 +2540,11 @@ def _tree_err(torch, got, want):
     return worst, nonzero
 
 
-def _train_parity(torch, arch, cfg, batches, steps=5):
+def _train_parity(torch, arch, cfg, batches, needed, steps=5):
     """Kernel path against plain path on the same seeded weights: the
-    loss, every gradient leaf, then ``steps`` AdamW steps' losses."""
+    loss, every gradient leaf, then ``steps`` AdamW steps' losses. The
+    kernel path must launch each kernel in ``needed``; the plain path no
+    kernel at all."""
     from repro_torch.models import model as M
     from repro_torch.training import optimizer as OPT
     from repro_torch.training import train as T
@@ -2376,60 +2576,75 @@ def _train_parity(torch, arch, cfg, batches, steps=5):
         f"kernel-path launches {ca}, plain-path {cr}")
     if abs(la - lr_) > 1e-5 or gerr > GRAD_TOL or not nonzero or serr > 1e-4:
         fail(f"phase 4t: {arch} kernel path differs from the plain path")
-    if ca["flash_attention"] == 0 or ca["flash_attention_bwd"] == 0 or \
-            cr["flash_attention_bwd"] != 0:
-        fail(f"phase 4t: {arch} did not train through K1 and K1-bwd")
+    if any(ca[k] == 0 for k in needed) or any(cr.values()):
+        fail(f"phase 4t: {arch} did not train through {needed} on the kernel "
+             f"path alone")
     del params
     torch.cuda.empty_cache()
     return max(abs(la - lr_), serr), gerr
 
 
 def phase_train_parity(torch):
-    """Phase 4t: smollm-360m at full width cut to 2 layers (B 8, S 512) and
-    whisper-base in full (B 2, 1500 seeded frames, 64 tokens), float32."""
+    """Phase 4t: smollm-360m at full width cut to 2 layers (B 8, S 512),
+    whisper-base in full (B 2, 1500 seeded frames, 64 tokens), mamba2-130m
+    at full width cut to 2 layers (B 8, S 512) and zamba2-1.2b cut to 7
+    (one segment with its shared attention block, then a tail; B 2, S 512),
+    float32."""
     from repro_torch.configs import get_config
     from repro_torch.training import data as TD
-    say(f"== phase 4t: training parity, {SMOLLM} full width, 2 layers, "
-        f"float32, kernel path vs plain path")
-    cfg = dataclasses.replace(get_config(SMOLLM), num_layers=2)
-    batches = list(TD.arithmetic_stream(cfg, TRAIN_B, TRAIN_S, 5, seed=SEED,
-                                        device="cuda"))
-    out = [_train_parity(torch, SMOLLM, cfg, batches)]
-    say(f"== phase 4t: training parity, {WHISPER} in full, float32")
-    cfg = get_config(WHISPER)
-    batches = list(TD.arithmetic_stream(cfg, 2, 64, 5, seed=SEED,
-                                        device="cuda"))
-    out.append(_train_parity(torch, WHISPER, cfg, batches))
+    k1 = ("flash_attention", "flash_attention_bwd")
+    k5 = ("ssd_scan", "ssd_scan_bwd")
+    out = []
+    for arch, layers, B, S, needed in (
+            (SMOLLM, 2, TRAIN_B, TRAIN_S, k1), (WHISPER, None, 2, 64, k1),
+            ("mamba2-130m", 2, TRAIN_B, TRAIN_S, k5),
+            (ZAMBA, 7, ZAMBA_TRAIN_B, TRAIN_S, k1 + k5)):
+        cfg = get_config(arch)
+        if layers is not None:
+            cfg = dataclasses.replace(cfg, num_layers=layers)
+        say(f"== phase 4t: training parity, {arch} full width, "
+            f"{cfg.num_layers} layers, float32, B {B} x {S}, kernel path vs "
+            f"plain path")
+        batches = list(TD.arithmetic_stream(cfg, B, S, 5, seed=SEED,
+                                            device="cuda"))
+        out.append(_train_parity(torch, arch, cfg, batches, needed))
     return out
 
 
-def phase_train(torch, card):
-    """Phase 10: full smollm-360m (32 layers, float32) trained 20 steps
-    through ``repro_torch.launch.train``'s code path; one --remat step; a
-    checkpoint round trip; mamba2-130m refuses to train on the card."""
+def _launch_train(torch, card, arch, batch, steps, checkpoint=""):
+    """Train full ``arch`` (float32, random weights from the seed) through
+    ``repro_torch.launch.train``'s code path: ``batch`` x TRAIN_S tokens of
+    the arithmetic stream, ``steps`` steps, lr 3e-3. Every logged loss and
+    gradient norm must be finite, and each kernel must launch once per
+    layer it runs in per step (K1 and K1-bwd in every attention layer or
+    shared attention block, K5 and K5-bwd in every Mamba layer). Returns
+    launch.train's result, the launches and the logged losses."""
     import math
-    import shutil
     from repro_torch.configs import get_config
     from repro_torch.launch import train as LT
-    from repro_torch.training import checkpoint as CKPT
-    from repro_torch.training import data as TD
-    from repro_torch.training import optimizer as OPT
-    from repro_torch.training import train as T
-    say(f"== phase 10: train {SMOLLM} (32 layers, float32) through "
-        f"repro_torch.launch.train: B {TRAIN_B}, S {TRAIN_S}, 20 steps")
+    cfg = get_config(arch)
+    every = cfg.hybrid_attn_every
+    n_attn = (cfg.num_layers // every if every else 0) \
+        if cfg.family in ("ssm", "hybrid") else cfg.num_layers
+    n_ssd = cfg.num_layers if cfg.family in ("ssm", "hybrid") else 0
+    expected = {"flash_attention": steps * n_attn,
+                "flash_attention_bwd": steps * n_attn,
+                "ssd_scan": steps * n_ssd, "ssd_scan_bwd": steps * n_ssd}
+    say(f"== phase 10: train {arch} ({cfg.num_layers} layers, float32) "
+        f"through repro_torch.launch.train: B {batch}, S {TRAIN_S}, "
+        f"{steps} steps")
     _fresh_peak(torch)
-    ck_dir = ROOT / "build" / "chip_smoke_train"
-    shutil.rmtree(ck_dir, ignore_errors=True)
-    ck = str(ck_dir / "smollm.npz")
-    args = LT.parse_args(["--arch", SMOLLM, "--full-config", "--steps", "20",
-                          "--batch-size", str(TRAIN_B), "--seq-len",
-                          str(TRAIN_S), "--lr", "3e-3", "--data",
-                          "arithmetic", "--seed", str(SEED), "--device",
-                          "cuda", "--checkpoint", ck])
+    argv = ["--arch", arch, "--full-config", "--steps", str(steps),
+            "--batch-size", str(batch), "--seq-len", str(TRAIN_S), "--lr",
+            "3e-3", "--data", "arithmetic", "--seed", str(SEED), "--device",
+            "cuda"]
+    if checkpoint:
+        argv += ["--checkpoint", checkpoint]
     lines = []
     _zero_train_counts()
     t0 = time.perf_counter()
-    res = LT.run(args, log=lambda m: (lines.append(m), say(f"  {m}")))
+    res = LT.run(LT.parse_args(argv),
+                 log=lambda m: (lines.append(m), say(f"  {m}")))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = _train_counts()
@@ -2437,30 +2652,35 @@ def phase_train(torch, card):
     logged = [l for l in lines if l.startswith("step")]
     losses = [float(l.split("loss")[1].split()[0]) for l in logged]
     gnorms = [float(l.split("gnorm")[1].split()[0]) for l in logged]
-    cfg = res["cfg"]
-    n_layers = cfg.num_layers
-    say(f"  10 {SMOLLM}: {len(logged)} logged steps, loss {losses[0]:.4f} -> "
+    say(f"  10 {arch}: {len(logged)} logged steps, loss {losses[0]:.4f} -> "
         f"{losses[-1]:.4f}, tok/s {res['tok_s']:.1f} over the steps "
-        f"({res['seconds']:.3f} s), wall with build and checkpoint "
-        f"{wall:.3f} s, max_memory_allocated_gb={peak:.3f}, launches "
-        f"{launches} (expected {20 * n_layers} each) card={card}")
-    if len(logged) != 20 or not all(math.isfinite(x) for x in losses + gnorms):
-        fail("phase 10: a loss or gradient norm is not finite")
-    if not losses[-1] < losses[0]:
-        fail("phase 10: the loss did not fall")
-    if launches != {"flash_attention": 20 * n_layers,
-                    "flash_attention_bwd": 20 * n_layers}:
-        fail(f"phase 10: launches {launches}, not {20 * n_layers} each")
-    main_launches = dict(launches)
+        f"({res['seconds']:.3f} s), wall with build"
+        f"{' and checkpoint' if checkpoint else ''} {wall:.3f} s, "
+        f"max_memory_allocated_gb={peak:.3f}, launches {launches} "
+        f"(expected {expected}) card={card}")
+    if len(logged) != steps or not all(math.isfinite(x)
+                                       for x in losses + gnorms):
+        fail(f"phase 10: {arch}: a loss or gradient norm is not finite")
+    if launches != expected:
+        fail(f"phase 10: {arch}: launches {launches}, not {expected}")
+    return res, launches, losses
 
-    # one step's loss and gradients with --remat against without
-    params = res["params"]
-    batch = next(TD.arithmetic_stream(cfg, TRAIN_B, TRAIN_S, 1, seed=SEED,
-                                      device="cuda"))
+
+def _remat_step(torch, arch, res, batch, per_layer):
+    """One step's loss and gradients with --remat against without, on the
+    trained weights: the losses within 1e-5, every gradient leaf non-zero,
+    and with remat each forward kernel twice per layer, each backward
+    kernel once (``per_layer``: the kernels' layer counts)."""
+    from repro_torch.training import data as TD
+    from repro_torch.training import optimizer as OPT
+    from repro_torch.training import train as T
+    cfg, params = res["cfg"], res["params"]
+    b = next(TD.arithmetic_stream(cfg, batch, TRAIN_S, 1, seed=SEED,
+                                  device="cuda"))
     out = {}
     for remat in (False, True):
         _zero_train_counts()
-        loss, _, grads = T.loss_and_grads(params, cfg, batch, remat=remat)
+        loss, _, grads = T.loss_and_grads(params, cfg, b, remat=remat)
         torch.cuda.synchronize()
         out[remat] = (float(loss), _train_counts())
         if not remat:
@@ -2468,16 +2688,41 @@ def phase_train(torch, card):
                           for g in OPT.tree_leaves(grads))
         del grads
     diff = abs(out[True][0] - out[False][0])
-    say(f"  10 --remat step: loss {out[True][0]:.7f} vs {out[False][0]:.7f} "
-        f"(|diff| {diff:.3e}, limit 1e-5); launches with remat "
-        f"{out[True][1]}, without {out[False][1]}; every gradient leaf "
-        f"non-zero {nonzero}")
-    if diff > 1e-5 or not nonzero or out[True][1] != {
-            "flash_attention": 2 * n_layers, "flash_attention_bwd": n_layers}:
-        fail("phase 10: the remat step differs or its launches are not "
-             "2x K1 and 1x K1-bwd per layer")
+    want = {k: n * (2 if k in ("flash_attention", "ssd_scan") else 1)
+            for k, n in per_layer.items()}
+    say(f"  10 {arch} --remat step: loss {out[True][0]:.7f} vs "
+        f"{out[False][0]:.7f} (|diff| {diff:.3e}, limit 1e-5); launches "
+        f"with remat {out[True][1]}, without {out[False][1]}; every "
+        f"gradient leaf non-zero {nonzero}")
+    if diff > 1e-5 or not nonzero or out[True][1] != want:
+        fail(f"phase 10: {arch}'s remat step differs or its launches are not "
+             f"{want}")
+
+
+def phase_train(torch, card):
+    """Phase 10: full smollm-360m (32 layers) and full mamba2-130m (24), B 8,
+    20 steps each, and full zamba2-1.2b (38), B 2, 5 steps, float32,
+    through ``repro_torch.launch.train``'s code path; a --remat step on
+    smollm-360m and on mamba2-130m; smollm's checkpoint round trip."""
+    import shutil
+    from repro_torch.training import checkpoint as CKPT
+    from repro_torch.training import optimizer as OPT
+    ck_dir = ROOT / "build" / "chip_smoke_train"
+    shutil.rmtree(ck_dir, ignore_errors=True)
+    ck = str(ck_dir / "smollm.npz")
+    res, launches, losses = _launch_train(torch, card, SMOLLM, TRAIN_B, 20,
+                                          checkpoint=ck)
+    if not losses[-1] < losses[0]:
+        fail(f"phase 10: {SMOLLM}'s loss did not fall")
+    out = {"flash_attention_bwd": launches["flash_attention_bwd"],
+           f"flash_attention@{SMOLLM}": launches["flash_attention"]}
+    n = res["cfg"].num_layers
+    _remat_step(torch, SMOLLM, res, TRAIN_B, {
+        "flash_attention": n, "flash_attention_bwd": n, "ssd_scan": 0,
+        "ssd_scan_bwd": 0})
 
     # the checkpoint launch.train wrote, restored on the card
+    params = res["params"]
     t1 = time.perf_counter()
     zeros = OPT.tree_map(torch.zeros_like, params)
     rp, rs, meta = CKPT.restore(ck, zeros, OPT.init_state(zeros))
@@ -2492,26 +2737,29 @@ def phase_train(torch, card):
     if not same or int(rs["step"]) != 20:
         fail("phase 10: the checkpoint does not restore bit for bit")
     del params, rp, rs, zeros, res
-
-    # SSM: no K5 backward yet, so a train step raises on the card
-    from repro_torch.models import model as M
-    mcfg = get_config("mamba2-130m")
-    gen = torch.Generator(device="cuda").manual_seed(SEED)
-    mp = M.init_params(mcfg, gen, torch.float32, "cuda")
-    step = T.make_train_step(mcfg, OPT.AdamWConfig())
-    mb = next(TD.arithmetic_stream(mcfg, 2, 64, 1, seed=SEED, device="cuda"))
-    try:
-        step(mp, OPT.init_state(mp), mb)
-    except RuntimeError as e:
-        say(f"  10 mamba2-130m train step on the card raises: {e}")
-        if "K5's backward" not in str(e):
-            fail("phase 10: mamba2-130m raised, but not K5's message")
-    else:
-        fail("phase 10: mamba2-130m trained on the card without K5's "
-             "backward")
-    del mp
     torch.cuda.empty_cache()
-    return main_launches
+
+    # SSM and hybrid: K5 under its autograd Function, K5-bwd
+    res, launches, losses = _launch_train(torch, card, "mamba2-130m",
+                                          TRAIN_B, 20)
+    if not losses[-1] < losses[0]:
+        fail("phase 10: mamba2-130m's loss did not fall")
+    out["ssd_scan_bwd"] = launches["ssd_scan_bwd"]
+    out["ssd_scan@mamba2-130m-train"] = launches["ssd_scan"]
+    n = res["cfg"].num_layers
+    _remat_step(torch, "mamba2-130m", res, TRAIN_B, {
+        "flash_attention": 0, "flash_attention_bwd": 0, "ssd_scan": n,
+        "ssd_scan_bwd": n})
+    del res
+    torch.cuda.empty_cache()
+    say(f"  10 {ZAMBA} peak reckoned before the run: 1.2e9 parameters x 4 "
+        f"bytes x (params, grads, mu, nu, new params) = 24 GB, plus "
+        f"activations")
+    res, launches, _ = _launch_train(torch, card, ZAMBA, ZAMBA_TRAIN_B, 5)
+    out[f"ssd_scan_bwd@{ZAMBA}"] = launches["ssd_scan_bwd"]
+    del res
+    torch.cuda.empty_cache()
+    return out
 
 
 def main() -> None:
@@ -2543,12 +2791,12 @@ def main() -> None:
     phase_disagg_parity(torch)
     phase_disagg_serve(torch, card)
     launches.update(phase_serve_families(torch, card))
-    train_launches = phase_train(torch, card)
-    launches["flash_attention_bwd"] = train_launches["flash_attention_bwd"]
-    launches[f"flash_attention@{SMOLLM}"] = train_launches["flash_attention"]
+    launches.update(phase_train(torch, card))
     errs["flash_attention_bwd"] = bwd_worst["float32"]
-    errs[f"flash_attention@{SMOLLM}"] = \
-        train_times[f"flash_attention@{SMOLLM}"]["err"]
+    errs["ssd_scan_bwd"] = bwd_worst["ssd_scan_bwd"]
+    errs[f"ssd_scan_bwd@{ZAMBA}"] = bwd_worst[f"ssd_scan_bwd@{ZAMBA}"]
+    for kname in (f"flash_attention@{SMOLLM}", "ssd_scan@mamba2-130m-train"):
+        errs[kname] = train_times[kname]["err"]
     times.update(train_times)
 
     sources = {"flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
@@ -2566,7 +2814,11 @@ def main() -> None:
                "flash_attention_bwd": (
                    "src/repro_torch/csrc/flash_attention_bwd.cu",
                    "src/repro/kernels/flash_attention.py:98 (its gradient; "
-                   "no Pallas counterpart)")}
+                   "no Pallas counterpart)"),
+               "ssd_scan_bwd": (
+                   "src/repro_torch/csrc/ssm_scan_bwd.cu",
+                   "src/repro/kernels/ssm_scan.py:73 (its gradient; no "
+                   "Pallas counterpart)")}
     rows = []
     for kname in ("flash_attention", "decode_attention",
                   "paged_decode_attention", "paged_decode_attention_int8",
@@ -2576,7 +2828,8 @@ def main() -> None:
                   f"flash_attention@{PHI}", f"decode_attention@{QWEN}",
                   f"decode_attention@{WHISPER}",
                   f"paged_decode_attention@{PHI}", "flash_attention_bwd",
-                  f"flash_attention@{SMOLLM}"):
+                  f"flash_attention@{SMOLLM}", "ssd_scan_bwd",
+                  f"ssd_scan_bwd@{ZAMBA}", "ssd_scan@mamba2-130m-train"):
         src, replaces = sources[kname.split("@")[0]]
         t = times[kname]
         rows.append({"name": kname, "route": "cuda", "source": src,

@@ -76,7 +76,7 @@
 // 1 GFLOP and 4 MB for one mamba2-130m layer at S = 512, so the bound is the
 // bytes (~1.3 us). The workspace (1 MB per (lane, head) of 4 chunks at
 // P = 64, N = 128) stays in the 50 MB L2 between the passes.
-#include "attention_common.cuh"
+#include "ssm_common.cuh"
 
 namespace repro_torch {
 
@@ -324,42 +324,6 @@ __device__ __forceinline__ void store_row(__nv_bfloat16* p,
 }
 
 // ------------------------------------------------ staging
-// dt of the chunk into dts[0, L) (0 past `valid`), then cum[j] = sum_{i<=j}
-// dt_i * a in float64 by warp 0: L / 32 consecutive steps per lane, then a
-// shuffle scan over the lanes' sums. Ends synchronised.
-__device__ void chunk_cumsum(const float* __restrict__ dtc, float a,
-                             float* dts, double* cum, int valid, int L) {
-  for (int j = threadIdx.x; j < L; j += blockDim.x) {
-    dts[j] = j < valid ? dtc[j] : 0.f;
-  }
-  __syncthreads();
-  if (threadIdx.x < 32) {
-    const int lane = threadIdx.x;
-    const int per = L / 32;
-    double g[4];
-    double run = 0.0;
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      if (k < per) {
-        run += (double)(dts[lane * per + k] * a);
-        g[k] = run;
-      }
-    }
-    double incl = run;
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const double v = __shfl_up_sync(kFull, incl, o);
-      if (lane >= o) incl += v;
-    }
-    const double base = incl - run;
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      if (k < per) cum[lane * per + k] = base + g[k];
-    }
-  }
-  __syncthreads();
-}
-
 // dst row r (row stride ld) <- src row r0 + r of the row-major (., W) tile
 // at src, by cp.async; rows at or past `valid` are zeros. src row 0 exists.
 // The caller waits (cp_async_wait_all) and synchronises.
@@ -536,10 +500,6 @@ ssd_state_scan_kernel(float* __restrict__ states,
 }
 
 // ------------------------------------------------ pass 3: outputs
-__host__ __device__ constexpr int slab_rows(int L) {
-  return L < 64 ? L : 64;
-}
-
 // Shared memory: cum [L] float64, dt [L] float32, then in T: C of the slab
 // [R][N + pad], B and x of keys 0..L [L][N + pad] and [L][P + pad], and the
 // incoming state [P][N + pad] (and its lo half in bf16).

@@ -48,6 +48,10 @@ _SIGNATURES = {
                                           _F, _I, _P],
     "repro_ssd_scan": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                        _I, _I, _I, _P],
+    # dtype, N; x dt A B C dy dfinal, the forward's workspace (states,
+    # totals), the scratch (dstates, dB/dC shares, steps, dA shares), dx
+    # ddt dA dB dC; B H S P chunk; the stream
+    "repro_ssd_scan_bwd": [_I, _I] + [_P] * 19 + [_I] * 5 + [_P],
 }
 
 

@@ -5,11 +5,12 @@
 ``ref``; a CUDA tensor launches the Hopper kernel, or raises if the kernel
 does not take its inputs. Under grad mode with an input that requires
 grad, ``flash_attention`` goes through K1's autograd Function (backward:
-K1-bwd), and every other kernel raises on a CUDA tensor: it has no
-backward kernel, and its output would carry no gradient. There is no
-fallback from the kernel to the plain version and no environment override. ``backend="ref"`` asks for the plain
-version on any device: the on-card comparison of the kernel path with the
-plain path uses it.
+K1-bwd) and ``ssd_scan`` through K5's (backward: K5-bwd); the decode
+kernels K2, K3 and K4 raise on a CUDA tensor there: they have no backward
+kernel, and their output would carry no gradient. There is no fallback
+from the kernel to the plain version and no environment override.
+``backend="ref"`` asks for the plain version on any device: the on-card
+comparison of the kernel path with the plain path uses it.
 
 Parameters (tile sizes, the SSD ``chunk``, the int8 read path ``impl``)
 resolve explicit -> tuned -> default: an explicit kwarg wins, then the
@@ -47,12 +48,12 @@ def _wants_grad(*tensors) -> bool:
         isinstance(t, torch.Tensor) and t.requires_grad for t in tensors)
 
 
-def _refuse_grad(name: str, *tensors, why: str = "") -> None:
+def _refuse_grad(name: str, *tensors) -> None:
     """A kernel with no backward kernel never runs where autograd would need
     one: its output would carry no gradient, silently."""
     if _wants_grad(*tensors):
         raise RuntimeError(
-            f"{name}: this kernel has no backward on the card{why}; call it "
+            f"{name}: this kernel has no backward on the card; call it "
             f"under torch.no_grad(), or run on the CPU (plain path)")
 
 
@@ -177,9 +178,9 @@ def ssd_scan(x, dt, A, Bmat, Cmat, *, chunk: Optional[int] = None,
     chunk = int(chunk)
     if not use:
         return _ref.ssd_scan_chunked(x, dt, A, Bmat, Cmat, chunk=chunk)
-    _refuse_grad("ssd_scan", x, dt, A, Bmat, Cmat,
-                 why=" (K5's backward kernel is not written yet: SSM and "
-                     "hybrid models train on the CPU)")
+    if _wants_grad(x, dt, A, Bmat, Cmat):
+        # K5 under its autograd Function, so the backward runs K5-bwd
+        return _ss.ssd_scan_grad(x, dt, A, Bmat, Cmat, chunk=chunk)
     return _ss.ssd_scan(x, dt, A, Bmat, Cmat, chunk=chunk)
 
 

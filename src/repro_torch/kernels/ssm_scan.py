@@ -6,6 +6,15 @@ Replaces the Pallas TPU kernel ``repro/kernels/ssm_scan.py::ssd_scan``
 note says how the TPU grid's sequential chunk axis became three passes
 (every chunk's local state, a scan of the states over the chunks, every
 chunk's outputs), where the bf16 path rounds, and what bounds it.
+
+K5-bwd, the gradient of K5's function, has no Pallas counterpart: the
+reference's K5 has no custom_vjp, so JAX trains on its plain path. Here it
+is ``csrc/ssm_scan_bwd.cu`` (every chunk's dY·Cᵀ, a reverse scan of the
+state gradients over the chunks, dX and dB per key slab, dC per row slab,
+then d(dt) and dA, and the sums over heads), reached only through
+``SSDScan``, a ``torch.autograd.Function`` whose forward is K5 and keeps
+K5's workspace (the state entering each chunk): ``kernels.ops`` routes
+there when grad mode is on and an input requires grad.
 """
 from __future__ import annotations
 
@@ -34,8 +43,7 @@ def ssd_scan_ref(x, dt, A, Bmat, Cmat, *,
     return _ref.ssd_scan_chunked(x, dt, A, Bmat, Cmat, chunk=chunk)
 
 
-def _check(x, dt, A, Bmat, Cmat, chunk) -> None:
-    name = "ssd_scan"
+def _check(x, dt, A, Bmat, Cmat, chunk, name: str = "ssd_scan") -> None:
     if x.dim() != 4:
         raise ValueError(f"{name}: x must be (B, H, S, P), got {tuple(x.shape)}")
     B, H, S, P = x.shape
@@ -74,18 +82,22 @@ def _check(x, dt, A, Bmat, Cmat, chunk) -> None:
 
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
              Bmat: torch.Tensor, Cmat: torch.Tensor, *,
-             chunk: int = 128) -> Tuple[torch.Tensor, torch.Tensor]:
+             chunk: int = 128, ws=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (B, H, S, P); dt (B, H, S) float32; A (H,) float32, negative;
     Bmat, Cmat (B, S, N). Returns (y (B, H, S, P) in x.dtype, final state
     (B, H, P, N) float32).
 
     On a CUDA tensor this launches the Hopper kernel (three device kernels,
     one count) or raises; a CPU tensor takes the plain version. Any S: the
-    kernel masks the ragged tail.
+    kernel masks the ragged tail. ``ws`` (CUDA only), a ``workspace()``,
+    is left holding the state entering each chunk and each chunk's total
+    decay, which K5-bwd reads. The output carries no gradient: under grad,
+    ``ssd_scan_grad``.
     """
     if x.device.type == "cpu":
         return ssd_scan_ref(x, dt, A, Bmat, Cmat, chunk=chunk)
-    y, state, launched = launch_passes(x, dt, A, Bmat, Cmat, chunk=chunk)
+    y, state, launched = launch_passes(x, dt, A, Bmat, Cmat, chunk=chunk,
+                                       ws=ws)
     if launched:
         ssd_scan.launches += 1
     return y, state
@@ -103,6 +115,15 @@ def workspace(x: torch.Tensor, N: int, chunk: int
     state (B, H, chunks, P, N) and its total decay (B, H, chunks)."""
     return tuple(torch.empty(shape, dtype=torch.float32, device=x.device)
                  for shape in _workspace_shapes(x, N, chunk))
+
+
+def _check_workspace(ws, x, N, chunk, name) -> None:
+    if ws is None or any(
+            tuple(w.shape) != shape or w.dtype != torch.float32
+            or w.device != x.device or not w.is_contiguous()
+            for w, shape in zip(ws, _workspace_shapes(x, N, chunk))):
+        raise ValueError(f"{name}: the workspace must be as workspace() "
+                         f"makes it")
 
 
 def launch_passes(x, dt, A, Bmat, Cmat, *, chunk: int = 128,
@@ -123,11 +144,8 @@ def launch_passes(x, dt, A, Bmat, Cmat, *, chunk: int = 128,
         return y, state, False
     if ws is None:
         ws = workspace(x, N, chunk)
-    elif any(tuple(w.shape) != shape or w.dtype != torch.float32
-             or w.device != x.device or not w.is_contiguous()
-             for w, shape in zip(ws, _workspace_shapes(x, N, chunk))):
-        raise ValueError("ssd_scan: the workspace must be as workspace() "
-                         "makes it")
+    else:
+        _check_workspace(ws, x, N, chunk, "ssd_scan")
     states, totals = ws
     code = _build.library().repro_ssd_scan(
         DTYPE_CODES[x.dtype], N, x.data_ptr(), dt.data_ptr(), A.data_ptr(),
@@ -139,3 +157,119 @@ def launch_passes(x, dt, A, Bmat, Cmat, *, chunk: int = 128,
 
 
 ssd_scan.launches = 0
+
+
+def ssd_scan_bwd_ref(x, dt, A, Bmat, Cmat, dy, dfinal=None, *,
+                     chunk: int = 128):
+    """The plain version of K5-bwd: ``torch.autograd.grad`` of
+    ``ref.ssd_scan_chunked`` in float32, given the gradient ``dy`` of y and
+    ``dfinal`` of the final state (None: the final state is unused), the
+    gradients cast to each input's dtype. Returns (dx, ddt, dA, dB, dC)."""
+    inputs = (x, dt, A, Bmat, Cmat)
+    with torch.enable_grad():
+        leaves = [t.detach().float().requires_grad_(True) for t in inputs]
+        y, final = ssd_scan_ref(*leaves, chunk=chunk)
+        outs, grads = [y], [dy.float()]
+        if dfinal is not None:
+            outs.append(final)
+            grads.append(dfinal.float())
+        got = torch.autograd.grad(outs, leaves, grads)
+    return tuple(g.to(t.dtype) for g, t in zip(got, inputs))
+
+
+def ssd_scan_bwd(x, dt, A, Bmat, Cmat, dy, dfinal=None, *, chunk: int = 128,
+                 ws=None):
+    """(dx, ddt, dA, dB, dC) of K5's function at (x, dt, A, Bmat, Cmat),
+    given ``dy`` (B, H, S, P) in x's dtype and ``dfinal`` (B, H, P, N)
+    float32 or None (an unused final state).
+
+    On a CUDA tensor this launches K5-bwd (six device kernels, one count)
+    or raises; ``ws`` is the workspace a K5 call on the same inputs filled
+    (``ssd_scan(..., ws=ws)``: the state entering each chunk and each
+    chunk's total decay). A CPU tensor takes the plain version.
+    """
+    if x.device.type == "cpu":
+        return ssd_scan_bwd_ref(x, dt, A, Bmat, Cmat, dy, dfinal,
+                                chunk=chunk)
+    name = "ssd_scan_bwd"
+    _check(x, dt, A, Bmat, Cmat, chunk, name)
+    B, H, S, P = x.shape
+    N = Bmat.shape[-1]
+    if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device \
+            or not dy.is_contiguous() or dy.data_ptr() % 16:
+        raise ValueError(f"{name}: dy must be a contiguous, 16-byte aligned "
+                         f"{x.dtype} tensor of x's shape {tuple(x.shape)}")
+    if dfinal is not None and (
+            dfinal.shape != (B, H, P, N) or dfinal.dtype != torch.float32
+            or dfinal.device != x.device or not dfinal.is_contiguous()
+            or dfinal.data_ptr() % 16):
+        raise ValueError(f"{name}: dfinal must be a contiguous float32 "
+                         f"tensor of shape {(B, H, P, N)}")
+    _check_workspace(ws, x, N, chunk, name)
+    dx, dB, dC = (torch.empty_like(t) for t in (x, Bmat, Cmat))
+    ddt = torch.empty_like(dt)
+    dA = torch.zeros_like(A)
+    if B * H * S == 0:
+        return dx.zero_(), ddt.zero_(), dA, dB.zero_(), dC.zero_()
+    states, totals = ws
+    f32 = dict(dtype=torch.float32, device=x.device)
+    nc = -(-S // chunk)
+    # float32 scratch: the state gradients of every chunk, the per-head
+    # partials of dB and dC, four per-step terms of d(cum) and d(dt), and
+    # the per-(lane, chunk) partials of dA, summed in a fixed order last
+    dstates = torch.empty((B, H, nc, P, N), **f32)
+    dB_part = torch.empty((B, H, S, N), **f32)
+    dC_part = torch.empty((B, H, S, N), **f32)
+    steps = torch.empty((4, B, H, S), **f32)
+    dA_part = torch.empty((B, H, nc), **f32)
+    code = _build.library().repro_ssd_scan_bwd(
+        DTYPE_CODES[x.dtype], N, x.data_ptr(), dt.data_ptr(), A.data_ptr(),
+        Bmat.data_ptr(), Cmat.data_ptr(), dy.data_ptr(),
+        None if dfinal is None else dfinal.data_ptr(), states.data_ptr(),
+        totals.data_ptr(), dstates.data_ptr(), dB_part.data_ptr(),
+        dC_part.data_ptr(), steps.data_ptr(), dA_part.data_ptr(),
+        dx.data_ptr(), ddt.data_ptr(), dA.data_ptr(), dB.data_ptr(),
+        dC.data_ptr(), B, H, S, P, chunk,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(code, name)
+    ssd_scan_bwd.launches += 1
+    return dx, ddt, dA, dB, dC
+
+
+ssd_scan_bwd.launches = 0
+
+
+class SSDScan(torch.autograd.Function):
+    """K5 with its gradient: the forward launches K5 on a workspace it
+    keeps (after K5's scan it holds the state entering each chunk, which the
+    backward reads rather than recomputes); the backward launches K5-bwd.
+    A final state that is not used costs no zero tensor. Under
+    ``torch.utils.checkpoint`` the forward runs twice and the backward
+    once."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, Bmat, Cmat, chunk):
+        ctx.set_materialize_grads(False)
+        ws = workspace(x, Bmat.shape[-1], chunk) if x.is_cuda else ()
+        y, final = ssd_scan(x, dt, A, Bmat, Cmat, chunk=chunk,
+                            ws=ws or None)
+        ctx.chunk = chunk
+        ctx.save_for_backward(x, dt, A, Bmat, Cmat, *ws)
+        return y, final
+
+    @staticmethod
+    def backward(ctx, dy, dfinal):
+        x, dt, A, Bmat, Cmat, *ws = ctx.saved_tensors
+        dy = torch.zeros_like(x) if dy is None else dy.contiguous()
+        if dfinal is not None:
+            dfinal = dfinal.contiguous()
+        grads = ssd_scan_bwd(x, dt, A, Bmat, Cmat, dy, dfinal,
+                             chunk=ctx.chunk, ws=tuple(ws) or None)
+        return (*grads, None)
+
+
+def ssd_scan_grad(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                  Bmat: torch.Tensor, Cmat: torch.Tensor, *,
+                  chunk: int = 128) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K5 through ``SSDScan``, so that autograd reaches K5-bwd."""
+    return SSDScan.apply(x, dt, A, Bmat, Cmat, chunk)

@@ -985,9 +985,9 @@ def test_flash_function_gradients_through_ops_on_card(dtype):
 
 @pytest.mark.gpu
 def test_kernels_without_a_backward_raise_under_grad():
-    """K2, K3, K4 and K5 refuse a CUDA input that requires grad under grad
-    mode (their outputs would carry no gradient); K5's message names its
-    missing backward. Under no_grad they run."""
+    """K2, K3 and K4 (decode only) refuse a CUDA input that requires grad
+    under grad mode (their outputs would carry no gradient). Under no_grad
+    they run."""
     from repro_torch.kernels import ops
     _need_card()
     gen = torch.Generator(device="cuda").manual_seed(3)
@@ -1011,22 +1011,108 @@ def test_kernels_without_a_backward_raise_under_grad():
             call()
         with torch.no_grad():
             assert call().shape == q.shape
-    inp = list(_ssd_inputs(gen, 1, 2, 40, 32, torch.float32, 32))
-    inp[0].requires_grad_(True)
-    with pytest.raises(RuntimeError, match="K5's backward"):
-        ops.ssd_scan(*inp, chunk=32)
-    with torch.no_grad():
-        y, _ = ops.ssd_scan(*inp, chunk=32)
-    assert y.shape == inp[0].shape
+
+
+# ------------------------------------------------------------ K5-bwd
+def _ssd_bwd_close(got, want, dtype):
+    """Each gradient within SSD_TOL·max(1, ‖ref‖∞) of the plain version."""
+    for g, w in zip(got, want):
+        lim = SSD_TOL[dtype] * max(1.0, w.float().abs().max().item())
+        assert (g.float() - w.float()).abs().max().item() <= lim
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("arch", ["smollm-360m", "whisper-base"])
-def test_reduced_train_step_on_card_matches_plain(arch):
-    """Reduced train steps on the card, float32, kernel path (K1 and
-    K1-bwd) against the plain path: loss within 1e-5, every gradient leaf
-    non-zero and within 1e-4·max(1, ‖g‖∞), and the loss after two AdamW
-    steps within 1e-4."""
+@pytest.mark.parametrize("with_final", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("P", SS.HEAD_DIMS)
+@pytest.mark.parametrize("N", SS.STATE_DIMS)
+@pytest.mark.parametrize("chunk", SS.CHUNKS)
+def test_ssd_bwd_every_instantiation_on_card(dtype, P, N, chunk, with_final):
+    """K5-bwd at every (dtype, P, N, chunk) it is built for, B = 2, H = 3
+    and a ragged S of three chunks, with and without a final-state
+    gradient, against autograd of the plain version; a second call gives
+    the same bits (no atomics), one count per call."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    S = 2 * chunk + chunk // 3 + 1
+    inp = _ssd_inputs(gen, 2, 3, S, N, dtype, P)
+    dy = _randn(gen, (2, 3, S, P), dtype)
+    dfinal = _randn(gen, (2, 3, P, N), torch.float32) if with_final else None
+    ws = SS.workspace(inp[0], N, chunk)
+    SS.ssd_scan(*inp, chunk=chunk, ws=ws)
+    before = SS.ssd_scan_bwd.launches
+    got = SS.ssd_scan_bwd(*inp, dy, dfinal, chunk=chunk, ws=ws)
+    again = SS.ssd_scan_bwd(*inp, dy, dfinal, chunk=chunk, ws=ws)
+    assert SS.ssd_scan_bwd.launches == before + 2
+    assert [g.dtype for g in got] == [t.dtype for t in inp]
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    _ssd_bwd_close(got, SS.ssd_scan_bwd_ref(*inp, dy, dfinal, chunk=chunk),
+                   dtype)
+
+
+@pytest.mark.gpu
+def test_ssd_bwd_wrapper_refuses():
+    """K5-bwd raises on what it does not take: no workspace, one of another
+    shape, a dy of another dtype, a dfinal of another shape."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    inp = _ssd_inputs(gen, 1, 2, 64, 64, torch.float32)
+    dy = _randn(gen, (1, 2, 64, 64), torch.float32)
+    ws = SS.workspace(inp[0], 64, 32)
+    SS.ssd_scan(*inp, chunk=32, ws=ws)
+    with pytest.raises(ValueError, match="workspace"):
+        SS.ssd_scan_bwd(*inp, dy, chunk=32)
+    with pytest.raises(ValueError, match="workspace"):
+        SS.ssd_scan_bwd(*inp, dy, chunk=128, ws=ws)
+    with pytest.raises(ValueError, match="dy"):
+        SS.ssd_scan_bwd(*inp, dy.bfloat16(), chunk=32, ws=ws)
+    with pytest.raises(ValueError, match="dfinal"):
+        SS.ssd_scan_bwd(*inp, dy, torch.zeros((1, 2, 64, 32), device="cuda"),
+                        chunk=32, ws=ws)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_function_gradients_through_ops_on_card(dtype):
+    """ops.ssd_scan under grad goes through the autograd Function: one K5
+    and one K5-bwd launch, gradients of y and of the final state equal to
+    the plain path's; with the final state unused too. Without grad it
+    launches K5 alone, as on the serving path."""
+    from repro_torch.kernels import ops
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    inp = _ssd_inputs(gen, 2, 3, 150, 64, dtype, 32)
+    leaves = [t.clone().requires_grad_(True) for t in inp]
+    dy = _randn(gen, (2, 3, 150, 32), dtype)
+    dfs = _randn(gen, (2, 3, 32, 64), torch.float32)
+    for with_final in (True, False):
+        n5, nb = SS.ssd_scan.launches, SS.ssd_scan_bwd.launches
+        y, fs = ops.ssd_scan(*leaves, chunk=32)
+        assert y.grad_fn is not None
+        outs, seeds = ([y, fs], [dy, dfs]) if with_final else ([y], [dy])
+        got = torch.autograd.grad(outs, leaves, seeds)
+        assert SS.ssd_scan.launches == n5 + 1
+        assert SS.ssd_scan_bwd.launches == nb + 1
+        ry, rfs = ops.ssd_scan(*leaves, chunk=32, backend="ref")
+        routs = [ry, rfs] if with_final else [ry]
+        _ssd_bwd_close(got, torch.autograd.grad(routs, leaves, seeds), dtype)
+    with torch.no_grad():
+        ops.ssd_scan(*leaves, chunk=32)
+    assert SS.ssd_scan.launches == n5 + 2
+    assert SS.ssd_scan_bwd.launches == nb + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,bwd", [
+    ("smollm-360m", {"flash_attention_bwd"}),
+    ("whisper-base", {"flash_attention_bwd"}),
+    ("mamba2-130m", {"ssd_scan_bwd"}),
+    ("zamba2-1.2b", {"flash_attention_bwd", "ssd_scan_bwd"})])
+def test_reduced_train_step_on_card_matches_plain(arch, bwd):
+    """Reduced train steps on the card, float32, kernel path (K1 and K1-bwd,
+    K5 and K5-bwd, as the family has them) against the plain path: loss
+    within 1e-5, every gradient leaf non-zero and within 1e-4·max(1,
+    ‖g‖∞), and the loss after two AdamW steps within 1e-4."""
     from repro_torch.configs import get_config
     from repro_torch.models import model as M
     from repro_torch.training import data as D
@@ -1040,14 +1126,16 @@ def test_reduced_train_step_on_card_matches_plain(arch):
     batch = next(D.arithmetic_stream(cfg, 2, 64, 1, seed=0, device="cuda"))
     opt = OPT.AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=4)
     out = {}
+    counts = {"flash_attention_bwd": FA.flash_attention_bwd,
+              "ssd_scan_bwd": SS.ssd_scan_bwd}
     for backend in ("auto", "ref"):
-        before = FA.flash_attention_bwd.launches
+        before = {k: f.launches for k, f in counts.items()}
         loss, _, grads = T.loss_and_grads(params, cfg, batch, backend=backend)
         step = T.make_train_step(cfg, opt, backend=backend)
         p2, s2, _ = step(params, OPT.init_state(params), batch)
         _, _, m = step(p2, s2, batch)
-        launched = FA.flash_attention_bwd.launches - before
-        assert launched > 0 if backend == "auto" else launched == 0
+        launched = {k for k, f in counts.items() if f.launches > before[k]}
+        assert launched == (bwd if backend == "auto" else set())
         out[backend] = loss, grads, m["loss"]
     assert abs(float(out["auto"][0]) - float(out["ref"][0])) < 1e-5
     for g, w in zip(OPT.tree_leaves(out["auto"][1]),

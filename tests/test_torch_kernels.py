@@ -272,7 +272,8 @@ def test_kernel_sources_and_build_are_lazy():
     assert _build._lib is None
     srcs = {p.name for p in _build._sources()}
     assert srcs == {"flash_attention.cu", "decode_attention.cu",
-                    "ssm_scan.cu", "flash_attention_bwd.cu"}
+                    "ssm_scan.cu", "flash_attention_bwd.cu",
+                    "ssm_scan_bwd.cu"}
     text = (_build.CSRC_DIR / "flash_attention.cu").read_text()
     assert "repro/kernels/flash_attention.py" in text
     # K1-bwd: the gradient of the same TPU kernel, which has no backward
@@ -281,6 +282,13 @@ def test_kernel_sources_and_build_are_lazy():
     assert 'extern "C" int repro_flash_attention_bwd(' in text
     # dtype, D, q k v o dO dq dk dv lse delta, 7 ints, 2 floats, the stream
     assert len(_build._SIGNATURES["repro_flash_attention_bwd"]) == 22
+    # K5-bwd: the gradient of the SSD scan, which has no backward either
+    text = (_build.CSRC_DIR / "ssm_scan_bwd.cu").read_text()
+    assert "repro/kernels/ssm_scan.py" in text and "_ssd_kernel" in text
+    assert 'extern "C" int repro_ssd_scan_bwd(' in text
+    # dtype, N, 19 pointers (inputs, dy, dfinal, the forward's workspace,
+    # the scratch, the gradients), B H S P chunk, the stream
+    assert len(_build._SIGNATURES["repro_ssd_scan_bwd"]) == 27
     text = (_build.CSRC_DIR / "decode_attention.cu").read_text()
     assert "_decode_kernel" in text and "_paged_decode_kernel" in text
     assert "arch=compute_90a,code=sm_90a" in " ".join(_build.NVCC_FLAGS)
