@@ -8,21 +8,25 @@ Phases, each printing its own lines; any failure exits non-zero:
 
   1. device  — card name, count, and nvidia-smi's name and power limit;
   2. build   — the Hopper kernels of src/repro_torch/csrc, built with nvcc
-               (build seconds and -Xptxas -v output, and a line per K1 v3,
-               K2 v3 / K3 v2 / K4 v2 (split and combine; the int8 split
-               instantiations labelled K4) and K5 v2 (three passes) kernel
-               with its registers, shared memory and spills; a spill in K1
-               v3, in a bf16 K5 v2 kernel or in a four-row bf16 K4 split
-               kernel (the int8 serving paths', D 64 and 128) fails;
-               K1-bwd's three kernels and K5-bwd's six are listed too, and
-               a spill there fails);
+               (build seconds and -Xptxas -v output, and a line per K1 v3
+               and v4, K2 v3 / K3 v2 / K4 v2 (split and combine; the int8
+               split instantiations labelled K4) and K5 v2 (three passes)
+               kernel with its registers, shared memory and spills; a spill
+               in K1 v3 or v4, in a bf16 K5 v2 kernel or in a four-row bf16
+               K4 split kernel (the int8 serving paths', D 64 and 128)
+               fails; K1-bwd's four kernels and K5-bwd's six are listed
+               too, and a spill there fails);
   3. kernels — K1 flash prefill, K2 dense decode and K3 paged decode held
                against their plain versions at mistral-7b's attention shapes,
                and K1 and K2 at zamba2-1.2b's shared block's (32 heads, no
                grouping, D = 64, window 8192) (tolerances bf16 2e-2, f32
-               2e-5, rows with a valid key only): K1 bf16 (v3, wgmma) at
-               Sq 37/300/512, q_offset 64 and -4, softcap, window 17,
-               sk_valid < Sk, D 64/128, Hkv 8/32 and every tile; K2 (v3,
+               2e-5, rows with a valid key only): K1 bf16 (v3, wgmma) and
+               f32 (v4, FMA micro-tiles) at Sq 37/300/512, q_offset 64, -4
+               and -70, softcap, window 17/33/4096, sk_valid < Sk, D
+               64/128, Hkv 8/32 and every tile each takes, and each row's
+               lse from both (the forward's output to K1-bwd) against
+               flash_attention_lse_ref, +inf exactly on rows with no
+               valid key; K2 (v3,
                split-KV) at kv_len on both sides of a split edge, both
                dtypes, D 64/128, captured into a CUDA graph, one count per
                call; the tiles each K1 kernel refuses; K3 (v2, split-KV
@@ -53,19 +57,23 @@ Phases, each printing its own lines; any failure exits non-zero:
                same function (SDPA, K/V expanded when grouped), and the
                card's bound (K4 also beside the gather composition; K1 by
                tile, K2, K3 and K4 by block_k, K5 by pass);
-  3t. K1-bwd — the gradient of K1 against torch.autograd of its plain
-               version, dq, dk and dv each within f32 2e-5 / bf16 2e-2
-               times max(1, |ref|inf), both dtypes, at smollm-360m's
-               training shape (B 8, 15 on 5 heads, D 64, S 128 and 512, and a
-               ragged 300), mistral-7b's (32 on 8, D 128, S 512, window 17
-               and 4096), whisper-base's encoder (8 heads, D 64, 1500²,
-               non-causal) and cross shape (24 on 1500), qwen2-vl-7b's G = 7
-               (768²) and grok-1's heads with a softcap of 30; a second call
-               gives the same bits; then, at smollm's training shape in
+  3t. K1-bwd — K1 with its lse (v4 in f32, v3 in bf16), then the
+               gradient of K1 on that lse, against their plain versions and
+               torch.autograd of K1's: the output and lse within f32 2e-5 /
+               bf16 2e-2, dq, dk and dv each within that times max(1,
+               |ref|inf), both dtypes, at smollm-360m's training shape (B
+               8, 15 on 5 heads, D 64, S 128 and 512, and a ragged 300),
+               zamba2-1.2b's (B 2, 32 heads, D 64, S 512, window 8192),
+               mistral-7b's (32 on 8, D 128, S 512, window 17 and 4096),
+               whisper-base's encoder (8 heads, D 64, 1500², non-causal)
+               and cross shape (24 on 1500), qwen2-vl-7b's G = 7 (768²) and
+               grok-1's heads with a softcap of 30; a second call gives the
+               same bits; then, at smollm's and zamba2's training shapes in
                float32, K1-bwd timed beside its plain version and the
                backward of one SDPA call (K/V expanded; a yardstick the
-               port never calls), and K1's float32 forward (v2) beside its
-               plain version and SDPA; then K5-bwd, the gradient of K5,
+               port never calls) and by kernel (a torch.profiler trace),
+               and K1's float32 forward (v4, with its lse) beside its plain
+               version and SDPA, and by tile; then K5-bwd, the gradient of K5,
                against torch.autograd of its plain version, dx, ddt, dA, dB
                and dC each within f32 2e-5 / bf16 5e-2 times
                max(1, |ref|inf), both dtypes, with and without a
@@ -77,8 +85,7 @@ Phases, each printing its own lines; any failure exits non-zero:
                version at both training shapes (no single library call:
                library_ms null) and by kernel (a torch.profiler trace),
                and K5's float32 forward beside its plain version and by
-               pass at mamba2's; bounds at the float32 peak (67e12, no
-               TF32);
+               pass at both; bounds at the float32 peak (67e12, no TF32);
   3c. tune   — the port's autotuner on the card (backend "cuda") over its
                default shapes and the int8 serving bucket b4c1024; the cache
                is written under build/ and not installed;
@@ -190,9 +197,11 @@ path (plain ``name`` is mistral-7b's for K1-K4 — K3's launches from phase
 count phase 6, the whisper-base, qwen2-vl-7b and phi3.5-moe rows phase 9;
 ``flash_attention_bwd`` and ``flash_attention@smollm-360m`` count phase
 10's smollm-360m steps, ``ssd_scan_bwd`` and ``ssd_scan@mamba2-130m-train``
-(K5's float32 forward) its mamba2-130m steps and ``ssd_scan_bwd@zamba2-1.2b``
-its zamba2-1.2b steps, and each carries phase 3t's float32 times and
-errors at its model's training shape),
+(K5's float32 forward) its mamba2-130m steps, and
+``flash_attention_bwd@zamba2-1.2b``, ``flash_attention@zamba2-1.2b-train``,
+``ssd_scan_bwd@zamba2-1.2b`` and ``ssd_scan@zamba2-1.2b-train`` its
+zamba2-1.2b steps, and each carries phase 3t's float32 times and errors at
+its model's training shape),
 with that path's launches and its own shapes' times and errors; the
 last line is {"ok": true, "device": {...}}. Without a CUDA device, or
 without the repository beside this file, it exits non-zero and prints no
@@ -283,7 +292,7 @@ def phase_build():
             f"spill stores/loads {spill} bytes")
         if k4:
             int8.append(k4)
-        if spill != "0/0" and ("flash_fwd_wgmma" in kern or "bwd_" in kern or (
+        if spill != "0/0" and ("flash_fwd_" in kern or "bwd_" in kern or (
                 "ssd_" in kern and "__nv_bfloat16" in kern) or (
                 k4 and k4[0] == "bf16" and k4[2] == 4)):
             spills.append(kern)
@@ -295,15 +304,15 @@ def phase_build():
         say("  ptxas: library found on disk, not rebuilt; no compiler "
             "report in this run")
     if spills:
-        fail(f"ptxas reports spills in K1 v3, K1-bwd, K5-bwd, bf16 K5 v2 or "
-             f"a four-row bf16 K4 split kernel: {spills}")
+        fail(f"ptxas reports spills in K1 v3 or v4, K1-bwd, K5-bwd, bf16 K5 "
+             f"v2 or a four-row bf16 K4 split kernel: {spills}")
 
 
-REPORTED_KERNELS = ("flash_fwd_wgmma", "decode_split_kernel",
+REPORTED_KERNELS = ("flash_fwd_wgmma", "flash_fwd_f32", "decode_split_kernel",
                     "decode_combine_kernel", "ssd_chunk_state_kernel",
                     "ssd_state_scan_kernel", "ssd_output_kernel",
-                    "bwd_stats_kernel", "bwd_dkdv_kernel", "bwd_dq_kernel",
-                    "ssd_bwd_")
+                    "bwd_delta_kernel", "bwd_dkdv_kernel", "bwd_dq_kernel",
+                    "bwd_group_sum_kernel", "ssd_bwd_")
 
 
 def _int8_split(kern):
@@ -320,8 +329,8 @@ def _int8_split(kern):
 
 def _ptxas_report(log):
     """(kernel, registers, static smem bytes, "stores/loads" spill bytes) of
-    every K1 v3, K2 v3 / K3 v2 / K4 v2 and K5 v2 instantiation in nvcc's
-    -Xptxas -v output."""
+    every K1 v3 and v4, K2 v3 / K3 v2 / K4 v2, K5 v2, K1-bwd and K5-bwd
+    instantiation in nvcc's -Xptxas -v output."""
     import re
     out, name, spill = [], None, "?"
     for line in log.splitlines():
@@ -414,6 +423,19 @@ def check_flash(torch, gen):
                   dict(dtype=dt, Sq=M_CAP, Sk=M_CAP, arch=PHI)]
     cases += [dict(dtype=bf, Sq=WENC, Sk=WENC, block_q=bq, block_k=bk, **w)
               for bq in FA.TILES[bf][0] for bk in FA.TILES[bf][1]]
+    # v4 (f32, FMA micro-tiles) at the same edges, and every tile it takes
+    f32 = torch.float32
+    cases += [dict(dtype=f32, Sq=300, Sk=300),
+              dict(dtype=f32, Sq=40, Sk=40, q_offset=-4, d=64),
+              dict(dtype=f32, Sq=300, Sk=300, q_offset=-70, window=33),
+              dict(dtype=f32, Sq=100, Sk=100, sk_valid=77),
+              dict(dtype=f32, Sq=128, Sk=128, hkv=32),
+              dict(dtype=f32, Sq=512, Sk=512, window=4096, d=64)]
+    cases += [dict(dtype=f32, Sq=300, Sk=300, d=d, block_q=bq, block_k=bk)
+              for d in (64, 128) for bq in FA.TILES[f32][0]
+              for bk in FA.TILES[f32][1]
+              if FA.smem_bytes(bq, bk, d) <= FA.SMEM_BYTES]
+    lse_worst = {"float32": 0.0, "bfloat16": 0.0}
     for c in cases:
         dt, Sq, Sk, d = c["dtype"], c["Sq"], c["Sk"], c.get("d", D)
         hq, hkv = c.get("hq", HQ), c.get("hkv", HKV)
@@ -425,7 +447,9 @@ def check_flash(torch, gen):
                   sk_valid=c.get("sk_valid"))
         tiles = {t: c[t] for t in ("block_q", "block_k") if t in c}
         got = FA.flash_attention(q, k, v, **kw, **tiles)
+        got_l, lse = FA._flash_attention_fwd(q, k, v, **kw, **tiles)
         want = FA.flash_attention_ref(q, k, v, **kw)
+        want_lse = FA.flash_attention_lse_ref(q, k, v, **kw)
         torch.cuda.synchronize()
         valid = Sk if kw["sk_valid"] is None else kw["sk_valid"]
         if kw["causal"]:
@@ -434,19 +458,34 @@ def check_flash(torch, gen):
         else:                          # every row sees every valid key
             rows = torch.full((1, hq, Sq), valid > 0, dtype=torch.bool,
                               device="cuda")
-        tol = TOL[str(dt).split(".")[1]]
+        name = str(dt).split(".")[1]
+        tol = TOL[name]
         err, ok = _err_on_valid(torch, got, want, rows, tol)
         ok = ok and torch.count_nonzero(got[~rows]).item() == 0
-        say(f"  K1 flash {str(dt)[6:]:8s} Hq={hq} Hkv={hkv} Sq={Sq:4d} "
+        # the lse the forward hands K1-bwd: close on rows with a key, +inf
+        # exactly on the others; asking for it leaves the output's bits
+        lse_err, lse_ok = _err_on_valid(torch, lse, want_lse, rows, tol)
+        lse_ok = lse_ok and torch.equal(lse == torch.inf, ~rows) \
+            and torch.equal(got, got_l)
+        lse_worst[name] = max(lse_worst[name], lse_err)
+        say(f"  K1 flash {name[:8]:8s} Hq={hq} Hkv={hkv} Sq={Sq:4d} "
             f"Sk={Sk:4d} D={d:3d} causal={kw['causal']} window={kw['window']} "
             f"softcap={kw['softcap']} q_offset={kw['q_offset']} "
             f"sk_valid={kw['sk_valid']} tiles={tiles or 'default'}: "
-            f"max_abs_err={err:.3e} {'ok' if ok else 'MISMATCH'}")
+            f"max_abs_err={err:.3e} lse_err={lse_err:.3e} "
+            f"{'ok' if ok and lse_ok else 'MISMATCH'}")
         if not ok:
             fail(f"K1 flash_attention disagrees with its plain version (or a "
                  f"row with no valid key is not 0): {c}")
+        if not lse_ok:
+            fail(f"K1's lse disagrees with flash_attention_lse_ref, is not "
+                 f"+inf exactly on rows with no valid key, or changed the "
+                 f"output: {c}")
         key = "flash_attention" + (f"@{c['arch']}" if "arch" in c else "")
         worst[key] = max(worst[key], err)
+    say(f"  K1 lse worst |err| on rows with a key: v4 (float32) "
+        f"{lse_worst['float32']:.3e}, v3 (bfloat16) "
+        f"{lse_worst['bfloat16']:.3e}")
     _check_flash_refusals(torch, FA)
     return worst
 
@@ -2227,10 +2266,11 @@ def _pairs(sq, sk, causal, window):
 
 
 def check_flash_bwd(torch):
-    """Phase 3t: K1-bwd against autograd of its plain version at the
-    training paths' shapes, both dtypes, dq, dk and dv each within
-    TOL·max(1, |ref|inf); a second call gives the same bits. Returns the
-    worst float32 and bfloat16 errors."""
+    """Phase 3t: K1 with its lse, then K1-bwd on that lse, against their
+    plain versions at the training paths' shapes, both dtypes: the output
+    (v4 in float32, v3 in bf16) and lse within TOL, dq, dk and dv each
+    within TOL·max(1, |ref|inf); a second K1-bwd call gives the same bits.
+    Returns the worst float32 K1-bwd error per kernels-line row."""
     from repro_torch.kernels import flash_attention as FA
     gen = torch.Generator(device="cuda").manual_seed(SEED + 19)
     # (label, B, Hq, Hkv, Sq, Sk, D, kwargs)
@@ -2238,6 +2278,8 @@ def check_flash_bwd(torch):
         (SMOLLM, TRAIN_B, SHQ, SHKV, 128, 128, SD, dict(causal=True)),
         (SMOLLM, TRAIN_B, SHQ, SHKV, 512, 512, SD, dict(causal=True)),
         (f"{SMOLLM} ragged", 2, SHQ, SHKV, 300, 300, SD, dict(causal=True)),
+        (ZAMBA, ZAMBA_TRAIN_B, ZHQ, ZHQ, TRAIN_S, TRAIN_S, ZD,
+         dict(causal=True, window=ZWINDOW)),
         ("mistral-7b", 1, HQ, HKV, 512, 512, D, dict(causal=True, window=17)),
         ("mistral-7b", 1, HQ, HKV, 512, 512, D,
          dict(causal=True, window=4096)),
@@ -2248,7 +2290,7 @@ def check_flash_bwd(torch):
         ("grok-1 softcap", 1, 48, 8, 256, 256, D,
          dict(causal=True, softcap=30.0)),
     ]
-    worst = {"float32": 0.0, "bfloat16": 0.0}
+    worst = {"flash_attention_bwd": 0.0, f"flash_attention_bwd@{ZAMBA}": 0.0}
     for dt in (torch.float32, torch.bfloat16):
         name = str(dt).split(".")[1]
         for label, B, hq, hkv, Sq, Sk, d, kw in cases:
@@ -2256,82 +2298,186 @@ def check_flash_bwd(torch):
             k = _rand(torch, gen, (B, hkv, Sk, d), dt)
             v = _rand(torch, gen, (B, hkv, Sk, d), dt)
             do = _rand(torch, gen, (B, hq, Sq, d), dt)
-            out = FA.flash_attention(q, k, v, **kw)
-            got = FA.flash_attention_bwd(q, k, v, out, do, **kw)
-            again = FA.flash_attention_bwd(q, k, v, out, do, **kw)
+            out, lse = FA._flash_attention_fwd(q, k, v, **kw)
+            got = FA.flash_attention_bwd(q, k, v, out, do, lse, **kw)
+            again = FA.flash_attention_bwd(q, k, v, out, do, lse, **kw)
             want = FA.flash_attention_bwd_ref(q, k, v, do, **kw)
+            fwd_err = (out.float() - FA.flash_attention_ref(q, k, v, **kw)
+                       .float()).abs().max().item()
+            lse_err = (lse - FA.flash_attention_lse_ref(q, k, v, **kw)) \
+                .abs().max().item()
             torch.cuda.synchronize()
             same = all(torch.equal(a, b) for a, b in zip(got, again))
-            errs, ok = [], same
+            ok = same and fwd_err <= TOL[name] and lse_err <= TOL[name]
+            errs = []
+            key = f"flash_attention_bwd@{ZAMBA}" if label == ZAMBA \
+                else "flash_attention_bwd"
             for g, w in zip(got, want):
                 err = (g.float() - w.float()).abs().max().item()
                 lim = TOL[name] * max(1.0, w.float().abs().max().item())
                 errs.append(f"{err:.2e}/{lim:.1e}")
                 ok = ok and err <= lim
-                worst[name] = max(worst[name], err)
-            say(f"  3t K1-bwd {name:8s} {label:18s} B={B} Hq={hq} Hkv={hkv} "
-                f"Sq={Sq:4d} Sk={Sk:4d} D={d:3d} {kw}: dq/dk/dv err/limit "
+                if name == "float32":
+                    worst[key] = max(worst[key], err)
+            say(f"  3t K1+K1-bwd {name:8s} {label:18s} B={B} Hq={hq} "
+                f"Hkv={hkv} Sq={Sq:4d} Sk={Sk:4d} D={d:3d} {kw}: out err "
+                f"{fwd_err:.2e} lse err {lse_err:.2e}; dq/dk/dv err/limit "
                 f"{' '.join(errs)} deterministic={same} "
                 f"{'ok' if ok else 'MISMATCH'}")
             if not ok:
-                fail(f"phase 3t: K1-bwd disagrees with its plain version or "
-                     f"is not deterministic ({label}, {name}, {kw})")
+                fail(f"phase 3t: K1's output or lse, or K1-bwd, disagrees "
+                     f"with its plain version, or K1-bwd is not "
+                     f"deterministic ({label}, {name}, {kw})")
+            del q, k, v, do, out, lse, got, again, want
+    torch.cuda.empty_cache()
     return worst
+
+
+def _kernel_split(torch, fn, pattern, reps=5):
+    """Device ms per call of each kernel whose name matches ``pattern``
+    (its first group names it) that ``fn`` launches, from torch.profiler's
+    CUDA trace over ``reps`` calls."""
+    import re
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    split = {}
+    for e in prof.key_averages():
+        m = re.search(pattern, e.key)
+        if m:
+            split[m.group(1)] = e.device_time_total / reps / 1e3
+    return split
+
+
+def _sm_clock_during(torch, fn, seconds=1.0):
+    """(median SM clock MHz, max power W) that nvidia-smi samples every
+    100 ms while ``fn`` runs back to back for ``seconds``: the clock the
+    float32 peak is reckoned at (1980 MHz) against the one the card ran."""
+    smi = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+         "--format=csv,noheader,nounits", "-lms", "100"],
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    try:
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < seconds:
+            for _ in range(10):
+                fn()
+            torch.cuda.synchronize()
+    finally:
+        smi.terminate()
+        out, _ = smi.communicate(timeout=30)
+    samples = []
+    for line in out.splitlines()[2:]:          # skip the idle start
+        try:
+            mhz, watts = (float(x) for x in line.split(","))
+        except ValueError:
+            continue
+        samples.append((mhz, watts))
+    if not samples:
+        return float("nan"), float("nan")
+    clocks = sorted(m for m, _ in samples)
+    return clocks[len(clocks) // 2], max(w for _, w in samples)
+
+
+# (B, Hq, Hkv, D, window) of K1 at the training shapes (S = TRAIN_S, causal)
+FLASH_TRAIN = {SMOLLM: (TRAIN_B, SHQ, SHKV, SD, None),
+               ZAMBA: (ZAMBA_TRAIN_B, ZHQ, ZHQ, ZD, ZWINDOW)}
 
 
 def time_flash_train(torch):
     """Phase 3t times at smollm-360m's training shape (B 8, 15 on 5 heads,
-    D 64, S 512, causal), float32: K1-bwd beside its plain version and the
-    backward of one SDPA call on K/V expanded to the query heads (a
-    yardstick the port never calls), each the mean of 20 eager calls
-    between CUDA events; and K1's float32 forward (v2) beside its plain
-    version and SDPA, by CUDA-graph replay as phase 3. Bounds at the
-    float32 peak without TF32."""
+    D 64, S 512, causal) and zamba2-1.2b's (B 2, 32 heads, no grouping, D
+    64, S 512, window 8192), float32: K1-bwd (given the forward's lse)
+    beside its plain version and the backward of one SDPA call on K/V
+    expanded to the query heads (a yardstick the port never calls), each
+    the mean of 20 eager calls between CUDA events, and by kernel (a
+    torch.profiler trace); K1's float32 forward (v4) with its lse, as
+    training calls it, beside its plain version and SDPA, by CUDA-graph
+    replay as phase 3, and by tile; and the SM clock while each runs back
+    to back. Bounds at the float32 peak without TF32 (at 1980 MHz)."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as FA
     gen = torch.Generator(device="cuda").manual_seed(SEED + 20)
     f32 = torch.float32
-    B, S = TRAIN_B, TRAIN_S
-    q = _rand(torch, gen, (B, SHQ, S, SD), f32)
-    k = _rand(torch, gen, (B, SHKV, S, SD), f32)
-    v = _rand(torch, gen, (B, SHKV, S, SD), f32)
-    do = _rand(torch, gen, (B, SHQ, S, SD), f32)
-    out = FA.flash_attention(q, k, v)
-    fwd_flops = 4 * B * SHQ * SD * _pairs(S, S, True, None)
-    io = (2 * SHQ * S * SD + 2 * SHKV * S * SD) * 4 * B     # q, o; k, v
-    shape = (f"B={B} Hq={SHQ} Hkv={SHKV} Sq=Sk={S} D={SD} float32 causal")
+    S = TRAIN_S
     rows = {}
-    # SDPA's backward alone: one forward kept, its graph retained
-    leaves = [t.clone().requires_grad_(True) for t in
-              (q, k.repeat_interleave(SHQ // SHKV, 1),
-               v.repeat_interleave(SHQ // SHKV, 1))]
-    with torch.enable_grad():
-        sdpa_out = F.scaled_dot_product_attention(*leaves, is_causal=True)
-    b_ms, b_by = _bound_f32(2.5 * fwd_flops,
-                            io + (SHQ * S * SD * 2 + 2 * SHKV * S * SD) * 4 * B)
-    rows["flash_attention_bwd"] = dict(
-        ms=_eager_ms(torch, lambda: FA.flash_attention_bwd(q, k, v, out, do)),
-        plain_ms=_eager_ms(torch, lambda: FA.flash_attention_bwd_ref(
-            q, k, v, do)),
-        library_ms=_eager_ms(torch, lambda: torch.autograd.grad(
-            sdpa_out, leaves, do, retain_graph=True)),
-        bound_ms=b_ms, bound_by=b_by, shape=shape)
-    b_ms, b_by = _bound_f32(fwd_flops, io)
-    rows[f"flash_attention@{SMOLLM}"] = dict(
-        ms=time_ms(torch, lambda: FA.flash_attention(q, k, v)),
-        plain_ms=time_ms(torch, lambda: FA.flash_attention_ref(q, k, v)),
-        library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
-            q, leaves[1].detach(), leaves[2].detach(), is_causal=True)),
-        bound_ms=b_ms, bound_by=b_by, shape=shape)
-    err = (FA.flash_attention(q, k, v) - FA.flash_attention_ref(q, k, v)) \
-        .abs().max().item()
-    rows[f"flash_attention@{SMOLLM}"]["err"] = err
-    if err > TOL["float32"]:
-        fail(f"phase 3t: K1 float32 at smollm's training shape: {err:.3e}")
+    for arch, (B, hq, hkv, d, window) in FLASH_TRAIN.items():
+        kw = dict(causal=True, window=window)
+        q = _rand(torch, gen, (B, hq, S, d), f32)
+        k = _rand(torch, gen, (B, hkv, S, d), f32)
+        v = _rand(torch, gen, (B, hkv, S, d), f32)
+        do = _rand(torch, gen, (B, hq, S, d), f32)
+        out, lse = FA._flash_attention_fwd(q, k, v, **kw)
+        fwd_flops = 4 * B * hq * d * _pairs(S, S, True, window)
+        io = (2 * hq * S * d + 2 * hkv * S * d) * 4 * B     # q, o; k, v
+        shape = (f"{arch} B={B} Hq={hq} Hkv={hkv} Sq=Sk={S} D={d} float32 "
+                 f"causal window={window}")
+        suffix = "" if arch == SMOLLM else f"@{arch}"
+        # SDPA's backward alone: one forward kept, its graph retained
+        leaves = [t.clone().requires_grad_(True) for t in
+                  (q, k.repeat_interleave(hq // hkv, 1),
+                   v.repeat_interleave(hq // hkv, 1))]
+        with torch.enable_grad():
+            sdpa_out = F.scaled_dot_product_attention(*leaves, is_causal=True)
+        # read q, k, v, o, dO and the lse; write dq, dk, dv
+        b_ms, b_by = _bound_f32(
+            2.5 * fwd_flops,
+            io + (hq * S * d * 2 + 2 * hkv * S * d) * 4 * B + hq * S * 4 * B)
+        rows[f"flash_attention_bwd{suffix}"] = dict(
+            ms=_eager_ms(torch, lambda: FA.flash_attention_bwd(
+                q, k, v, out, do, lse, **kw)),
+            plain_ms=_eager_ms(torch, lambda: FA.flash_attention_bwd_ref(
+                q, k, v, do, **kw)),
+            library_ms=_eager_ms(torch, lambda: torch.autograd.grad(
+                sdpa_out, leaves, do, retain_graph=True)),
+            bound_ms=b_ms, bound_by=b_by, shape=shape,
+            kernels=_kernel_split(torch, lambda: FA.flash_attention_bwd(
+                q, k, v, out, do, lse, **kw), r"bwd_(\w+?)_kernel"),
+            clock=_sm_clock_during(torch, lambda: FA.flash_attention_bwd(
+                q, k, v, out, do, lse, **kw)))
+        b_ms, b_by = _bound_f32(fwd_flops, io + hq * S * 4 * B)   # and lse
+        key = f"flash_attention@{SMOLLM}" if arch == SMOLLM \
+            else f"flash_attention@{arch}-train"
+        err = max((out - FA.flash_attention_ref(q, k, v, **kw)).abs().max()
+                  .item(), (lse - FA.flash_attention_lse_ref(q, k, v, **kw))
+                  .abs().max().item())
+        if err > TOL["float32"]:
+            fail(f"phase 3t: K1 float32 at {arch}'s training shape: "
+                 f"{err:.3e}")
+        tq, tk = FA.TILES[f32]
+        rows[key] = dict(
+            ms=time_ms(torch, lambda: FA._flash_attention_fwd(q, k, v, **kw)),
+            plain_ms=time_ms(torch, lambda: FA.flash_attention_ref(q, k, v,
+                                                                   **kw)),
+            library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
+                q, leaves[1].detach(), leaves[2].detach(), is_causal=True)),
+            bound_ms=b_ms, bound_by=b_by, shape=shape, err=err,
+            tiles={f"{bq}x{bk}": time_ms(torch, lambda: FA._flash_attention_fwd(
+                q, k, v, block_q=bq, block_k=bk, **kw))
+                for bq in tq for bk in tk
+                if FA.smem_bytes(bq, bk, d) <= FA.SMEM_BYTES},
+            clock=_sm_clock_during(torch, lambda: FA._flash_attention_fwd(
+                q, k, v, **kw)))
+        del q, k, v, do, out, lse, leaves, sdpa_out
+    torch.cuda.empty_cache()
     for name, r in rows.items():
         say(f"  time {name:34s} {r['shape']}: ms={r['ms']:.4f} "
             f"plain_ms={r['plain_ms']:.4f} library_ms={r['library_ms']:.4f} "
             f"bound_ms={r['bound_ms']:.5f} ({r['bound_by']})")
+        if "tiles" in r:
+            say(f"  tiles {name:33s} ms by tile: " + " ".join(
+                f"{t}={ms:.4f}" for t, ms in r["tiles"].items()))
+        if "kernels" in r:
+            say(f"  profile {name:31s} device ms by kernel (torch.profiler): "
+                + " ".join(f"{k}={ms:.4f}" for k, ms in r["kernels"].items())
+                + f" sum={sum(r['kernels'].values()):.4f}")
+        say(f"  clock {name:33s} under load (nvidia-smi, median of 100 ms "
+            f"samples): clocks.sm={r['clock'][0]:.0f} MHz, max "
+            f"power.draw={r['clock'][1]:.1f} W")
     return rows
 
 
@@ -2413,32 +2559,13 @@ def _ssd_pairs(S, L):
     return full * L * (L + 1) // 2 + tail * (tail + 1) // 2
 
 
-def _bwd_kernel_split(torch, fn, reps=5):
-    """Device ms per call of each of K5-bwd's six kernels that ``fn``
-    launches, from torch.profiler's CUDA trace over ``reps`` calls."""
-    import re
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    split = {}
-    for e in prof.key_averages():
-        m = re.search(r"ssd_bwd_(\w+?)_kernel", e.key)
-        if m:
-            split[m.group(1)] = e.device_time_total / reps / 1e3
-    return split
-
-
 def time_ssd_train(torch):
     """Phase 3t times, float32, at mamba2-130m's training shape (B 8, S 512,
     H 24, P 64, N 128, chunk 128; no final-state gradient, as in training)
     and zamba2-1.2b's (B 2, H 64, N 64): K5-bwd beside its plain version,
-    each the mean of 20 eager calls between CUDA events; and at mamba2's,
-    K5's float32 forward beside its plain version by CUDA-graph replay, as
-    phase 3, and by pass; K5-bwd's six kernels' device times from a
+    each the mean of 20 eager calls between CUDA events; and at both, K5's
+    float32 forward beside its plain version by CUDA-graph replay, as phase
+    3, and by pass; K5-bwd's six kernels' device times from a
     torch.profiler trace. No single PyTorch call computes either:
     library_ms is null.
     Bounds at the float32 peak without TF32."""
@@ -2465,26 +2592,26 @@ def time_ssd_train(torch):
             plain_ms=_eager_ms(torch, lambda: SS.ssd_scan_bwd_ref(
                 *inp, dy, chunk=L)),
             library_ms=None, bound_ms=b_ms, bound_by=b_by, shape=shape,
-            kernels=_bwd_kernel_split(torch, lambda: SS.ssd_scan_bwd(
-                *inp, dy, chunk=L, ws=ws)))
-        if arch == "mamba2-130m":
-            fwd_flops = 2 * B * H * (pairs * (N + P) + 2 * S * P * N)
-            fwd_bytes = 4 * (2 * B * H * S * P + 2 * B * S * N + B * H * S
-                             + H + B * H * P * N)
-            b_ms, b_by = _bound_f32(fwd_flops, fwd_bytes)
-            y, fs = SS.ssd_scan(*inp, chunk=L)
-            want_y, want_fs = SS.ssd_scan_ref(*inp, chunk=L)
-            err = max((y - want_y).abs().max().item(),
-                      (fs - want_fs).abs().max().item())
-            if err > SSD_TOL["float32"]:
-                fail(f"phase 3t: K5 float32 at mamba2's training shape: "
-                     f"{err:.3e}")
-            rows[f"ssd_scan@{arch}-train"] = dict(
-                ms=time_ms(torch, lambda: SS.ssd_scan(*inp, chunk=L)),
-                plain_ms=time_ms(torch, lambda: SS.ssd_scan_ref(*inp,
-                                                                chunk=L)),
-                library_ms=None, bound_ms=b_ms, bound_by=b_by, shape=shape,
-                err=err, tiles=_ssd_passes(torch, SS, inp, N, L))
+            kernels=_kernel_split(torch, lambda: SS.ssd_scan_bwd(
+                *inp, dy, chunk=L, ws=ws), r"ssd_bwd_(\w+?)_kernel"))
+        # K5's float32 forward, as training calls it
+        fwd_flops = 2 * B * H * (pairs * (N + P) + 2 * S * P * N)
+        fwd_bytes = 4 * (2 * B * H * S * P + 2 * B * S * N + B * H * S
+                         + H + B * H * P * N)
+        b_ms, b_by = _bound_f32(fwd_flops, fwd_bytes)
+        y, fs = SS.ssd_scan(*inp, chunk=L)
+        want_y, want_fs = SS.ssd_scan_ref(*inp, chunk=L)
+        err = max((y - want_y).abs().max().item(),
+                  (fs - want_fs).abs().max().item())
+        if err > SSD_TOL["float32"]:
+            fail(f"phase 3t: K5 float32 at {arch}'s training shape: "
+                 f"{err:.3e}")
+        rows[f"ssd_scan@{arch}-train"] = dict(
+            ms=time_ms(torch, lambda: SS.ssd_scan(*inp, chunk=L)),
+            plain_ms=time_ms(torch, lambda: SS.ssd_scan_ref(*inp,
+                                                            chunk=L)),
+            library_ms=None, bound_ms=b_ms, bound_by=b_by, shape=shape,
+            err=err, tiles=_ssd_passes(torch, SS, inp, N, L))
         del inp, dy, ws
     torch.cuda.empty_cache()
     for name, r in rows.items():
@@ -2502,8 +2629,8 @@ def time_ssd_train(torch):
 
 
 def phase_kernels_train(torch):
-    say("== phase 3t: K1-bwd and K5-bwd vs their plain versions, and the "
-        "training shapes' times")
+    say("== phase 3t: K1 with its lse, K1-bwd and K5-bwd vs their plain "
+        "versions, and the training shapes' times")
     worst = check_flash_bwd(torch)
     times = time_flash_train(torch)
     worst.update(check_ssd_bwd(torch))
@@ -2757,6 +2884,9 @@ def phase_train(torch, card):
         f"activations")
     res, launches, _ = _launch_train(torch, card, ZAMBA, ZAMBA_TRAIN_B, 5)
     out[f"ssd_scan_bwd@{ZAMBA}"] = launches["ssd_scan_bwd"]
+    out[f"ssd_scan@{ZAMBA}-train"] = launches["ssd_scan"]
+    out[f"flash_attention_bwd@{ZAMBA}"] = launches["flash_attention_bwd"]
+    out[f"flash_attention@{ZAMBA}-train"] = launches["flash_attention"]
     del res
     torch.cuda.empty_cache()
     return out
@@ -2792,10 +2922,12 @@ def main() -> None:
     phase_disagg_serve(torch, card)
     launches.update(phase_serve_families(torch, card))
     launches.update(phase_train(torch, card))
-    errs["flash_attention_bwd"] = bwd_worst["float32"]
-    errs["ssd_scan_bwd"] = bwd_worst["ssd_scan_bwd"]
-    errs[f"ssd_scan_bwd@{ZAMBA}"] = bwd_worst[f"ssd_scan_bwd@{ZAMBA}"]
-    for kname in (f"flash_attention@{SMOLLM}", "ssd_scan@mamba2-130m-train"):
+    for kname in ("flash_attention_bwd", f"flash_attention_bwd@{ZAMBA}",
+                  "ssd_scan_bwd", f"ssd_scan_bwd@{ZAMBA}"):
+        errs[kname] = bwd_worst[kname]
+    for kname in (f"flash_attention@{SMOLLM}",
+                  f"flash_attention@{ZAMBA}-train",
+                  "ssd_scan@mamba2-130m-train", f"ssd_scan@{ZAMBA}-train"):
         errs[kname] = train_times[kname]["err"]
     times.update(train_times)
 
@@ -2828,8 +2960,10 @@ def main() -> None:
                   f"flash_attention@{PHI}", f"decode_attention@{QWEN}",
                   f"decode_attention@{WHISPER}",
                   f"paged_decode_attention@{PHI}", "flash_attention_bwd",
-                  f"flash_attention@{SMOLLM}", "ssd_scan_bwd",
-                  f"ssd_scan_bwd@{ZAMBA}", "ssd_scan@mamba2-130m-train"):
+                  f"flash_attention@{SMOLLM}", f"flash_attention_bwd@{ZAMBA}",
+                  f"flash_attention@{ZAMBA}-train", "ssd_scan_bwd",
+                  f"ssd_scan_bwd@{ZAMBA}", "ssd_scan@mamba2-130m-train",
+                  f"ssd_scan@{ZAMBA}-train"):
         src, replaces = sources[kname.split("@")[0]]
         t = times[kname]
         rows.append({"name": kname, "route": "cuda", "source": src,

@@ -47,38 +47,80 @@
 // bf16 before P·V, a relative error of at most 2^-9 per term, far inside
 // the bf16 tolerance of 2e-2. The row sums l use the unrounded P.
 //
-// v2, float32 (flash_fwd_kernel): tensor cores would mean TF32, which
-// misses the float32 tolerance of 2e-5, so float32 stays on the CUDA cores:
-// one block per (q tile, q head, batch) over K/V tiles staged in shared
-// memory as float32, each warp carrying groups of four query rows
-// (attention_common.cuh).
+// v4, float32 (flash_fwd_f32): tensor cores would mean TF32, which misses
+// the float32 tolerance of 2e-5, so float32 stays on the CUDA cores, where
+// the bound is the FMA rate (67e12 FLOP/s) and the risk is the shared
+// memory that feeds it (flash_common.cuh). One block of 2·block_q threads
+// per (q tile, q head, batch), heaviest causal q tiles first. Thread
+// (ty, tx) owns query rows 8ty .. 8ty+7 and, per K/V tile, keys tx, tx+16,
+// ...: S = Q·Kᵀ on an 8 x (block_k/16) register tile (8 x 4 at the default
+// 64 x 64), the online softmax on it (row max and sum over the half warp by
+// shuffles; each thread keeps its own share of l), P to shared memory, then
+// O += P·V on an 8 x (D/16) register tile of the same rows, so m, l and O
+// of a row never leave the threads that own it. Q, K and V tiles are
+// copied by cp.async, K rows padded to D + 4 floats. K and V have one
+// buffer each and are refilled as soon as they are read: the next K tile
+// loads during this tile's softmax and P·V, the next V tile during the next
+// tile's Q·Kᵀ. At 64 x 64 and D 64 a block holds 67.5 KB, so three blocks
+// (12 warps) share an SM.
+//
+// Both kernels can write each row's logsumexp, lse = m + log l in the units
+// of the scaled, softcapped logits (+inf for a row with no valid key): K1's
+// autograd Function hands it to K1-bwd, which then recomputes no row
+// statistics. A null lse pointer writes nothing (the serving path).
 #include <cuda.h>
 
-#include "attention_common.cuh"
+#include "flash_common.cuh"
 
 namespace repro_torch {
 
-// ------------------------------------------------------ v2: float32, FMA
-constexpr int kRows = 4;   // query rows a warp carries through one K/V read
+// ------------------------------------------ v4: float32, FMA micro-tiles
+namespace v4 {
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int Hq, int Hkv,
-                 int Sq, int Sk, int causal, int window, float softcap,
-                 float scale, int q_offset, int sk_valid, int bq, int bk) {
+constexpr size_t kSmemLimit = 232448;     // dynamic shared memory of a block
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int D, int BQ, int BK>
+struct Layout {
+  static constexpr int R = 8;                     // query rows a thread
+  static constexpr int NT = BQ / R * tile::kTX;   // threads of a block
+  static constexpr int LDQ = D, LDK = D + 4, LDV = D, LDP = BK + 4;
+  static constexpr int OFF_K = BQ * LDQ;
+  static constexpr int OFF_V = OFF_K + BK * LDK;
+  static constexpr int OFF_P = OFF_V + BK * LDV;
+  static constexpr size_t BYTES = sizeof(float) * (OFF_P + BQ * LDP);
+  // blocks an SM should hold, for the register budget: three 128-thread
+  // blocks at D 64 where their shared memory fits (64 x 64 and 64 x 32),
+  // else one
+  static constexpr int MIN_BLOCKS =
+      D == 64 && NT == 128 && 3 * BYTES <= kSmemLimit ? 3 : 1;
+};
+
+template <int D, int BQ, int BK>
+__global__ void __launch_bounds__(Layout<D, BQ, BK>::NT,
+                                  Layout<D, BQ, BK>::MIN_BLOCKS)
+flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
+              const float* __restrict__ v, float* __restrict__ o,
+              float* __restrict__ lse, int Hq, int Hkv, int Sq, int Sk,
+              int causal, int window, float softcap, float scale,
+              int q_offset, int sk_valid) {
+  using L = Layout<D, BQ, BK>;
+  constexpr int R = L::R, NT = L::NT, NJ = BK / tile::kTX, NH = D / 64;
   extern __shared__ __align__(16) float smem[];
-  const int b = blockIdx.z;
-  const int h = blockIdx.y;
-  const int q0 = blockIdx.x * bq;
-  const int hk = h / (Hq / Hkv);
-  const int rows = min(bq, Sq - q0);
-  const int warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  Smem<D> s(smem, bq, bk);
+  float* sQ = smem;
+  float* sK = smem + L::OFF_K;
+  float* sV = smem + L::OFF_V;
+  float* sP = smem + L::OFF_P;
 
-  const size_t qoff = (((size_t)b * Hq + h) * Sq + q0) * D;
-  init_rows<T, D>(s, q + qoff, rows, scale);
+  const int n_qt = (Sq + BQ - 1) / BQ;
+  const int qt = n_qt - 1 - (int)blockIdx.x / Hq;   // heaviest tiles first
+  const int h = (int)blockIdx.x % Hq;
+  const int b = blockIdx.y;
+  const int hk = h / (Hq / Hkv);
+  const int q0 = qt * BQ;
+  const int rows = min(BQ, Sq - q0);
+  const int ty = threadIdx.x / tile::kTX, tx = threadIdx.x % tile::kTX;
+  const int row0 = ty * R;                          // first row of the thread
 
   // live key range of the whole q tile: the structural block skip
   const int q_first = q0 + q_offset;
@@ -87,56 +129,173 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   if (causal) k_end = min(k_end, q_last + 1);
   int k_begin = 0;
   if (window > 0) k_begin = max(0, q_first - window + 1);
-  k_begin = (k_begin / bk) * bk;
+  k_begin = (k_begin / BK) * BK;
+  const int n_tiles = k_end > k_begin ? (k_end - k_begin + BK - 1) / BK : 0;
 
-  const size_t kvoff = ((size_t)b * Hkv + hk) * Sk * D;
-  const T* kb = k + kvoff;
-  const T* vb = v + kvoff;
-  auto row_ptr = [](int kpos) { return (size_t)kpos * D; };
+  const size_t qoff = (((size_t)b * Hq + h) * Sq + q0) * D;
+  const float* kb = k + ((size_t)b * Hkv + hk) * Sk * D;
+  const float* vb = v + ((size_t)b * Hkv + hk) * Sk * D;
+  if (n_tiles > 0) {
+    tile::load_tile<BQ, D, L::LDQ, NT>(sQ, q + qoff, rows);
+    tile::load_tile<BK, D, L::LDK, NT>(sK, kb + (size_t)k_begin * D,
+                                       sk_valid - k_begin);
+    tile::cp_async_commit();
+    tile::load_tile<BK, D, L::LDV, NT>(sV, vb + (size_t)k_begin * D,
+                                       sk_valid - k_begin);
+    tile::cp_async_commit();
+  }
 
-  const int groups = (rows + kRows - 1) / kRows;
-  for (int k0 = k_begin; k0 < k_end; k0 += bk) {
-    __syncthreads();   // previous tile consumed; first pass: init visible
-    load_tile<T, D>(s, kb, vb, k0, bk, sk_valid, row_ptr);
+  float oacc[R][4 * NH];
+  float m[R], l[R];
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    m[i] = -INFINITY;
+    l[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < 4 * NH; ++c) oacc[i][c] = 0.f;
+  }
+  const int qpos0 = q0 + row0 + q_offset;
+  // a warp's 2R rows, for the test that skips the masks
+  const int w_first = q0 + (int)(threadIdx.x / 32) * 2 * R + q_offset;
+  const int w_last = w_first + 2 * R - 1;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int k0 = k_begin + it * BK;
+    const bool more = it + 1 < n_tiles;
+    tile::cp_async_wait<1>();   // Q and this K tile (V may be in flight)
     __syncthreads();
-    for (int g = warp; g < groups; g += nwarps) {
-      const int r0 = g * kRows;
-      const int nr = min(kRows, rows - r0);
-      const int qpos0 = q0 + r0 + q_offset;             // first row of group
-      if (causal && k0 > qpos0 + nr - 1) continue;       // right of diagonal
-      if (window > 0 && qpos0 - (k0 + bk - 1) >= window) continue;
-      auto valid = [=](int i, int kpos) {
-        const int qpos = qpos0 + i;
-        bool ok = kpos < sk_valid;
-        if (causal) ok = ok && kpos <= qpos;
-        if (window > 0) ok = ok && (qpos - kpos) < window;
-        return ok;
-      };
-      attend_tile<D, kRows>(s, r0, nr, k0, bk, softcap, valid);
+    float s[R][NJ];
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) s[i][j] = 0.f;
+    }
+    tile::abt<R, NJ, D, L::LDQ, L::LDK>(sQ + row0 * L::LDQ, sK, s);
+    __syncthreads();            // every thread has read this K tile
+    if (more) {
+      tile::load_tile<BK, D, L::LDK, NT>(sK, kb + (size_t)(k0 + BK) * D,
+                                         sk_valid - k0 - BK);
+      tile::cp_async_commit();
+    }
+
+    // online softmax on the register tile; a tile whose every key is valid
+    // for every row of this warp skips the masks
+    const bool interior = k0 + BK <= sk_valid &&
+                          (!causal || k0 + BK - 1 <= w_first) &&
+                          (window <= 0 || w_last - k0 < window);
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      const int qpos = qpos0 + i;
+      float mx = m[i];
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        float x = s[i][j] * scale;
+        if (softcap > 0.f) x = softcap * tanhf(x / softcap);
+        if (!interior) {
+          const int kpos = k0 + tx + tile::kTX * j;
+          bool ok = kpos < sk_valid;
+          if (causal) ok = ok && kpos <= qpos;
+          if (window > 0) ok = ok && (qpos - kpos) < window;
+          x = ok ? x : -INFINITY;
+        }
+        s[i][j] = x;
+        mx = fmaxf(mx, x);
+      }
+      mx = tile::row_max16(mx);
+      const float base = mx == -INFINITY ? 0.f : mx;   // no valid key yet
+      const float alpha = exp2f((m[i] - base) * kLog2e);
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const float p = exp2f((s[i][j] - base) * kLog2e);
+        sP[(row0 + i) * L::LDP + tx + tile::kTX * j] = p;
+        sum += p;
+      }
+      l[i] = l[i] * alpha + sum;
+      m[i] = mx;
+#pragma unroll
+      for (int c = 0; c < 4 * NH; ++c) oacc[i][c] *= alpha;
+    }
+    if (more) {
+      tile::cp_async_wait<1>();   // this V tile (the next K may be in flight)
+    } else {
+      tile::cp_async_wait<0>();
+    }
+    __syncthreads();              // P and this V tile visible
+    tile::ab<R, NH, BK, L::LDP, L::LDV>(sP + row0 * L::LDP, sV, oacc);
+    __syncthreads();              // every thread has read P and this V tile
+    if (more) {
+      tile::load_tile<BK, D, L::LDV, NT>(sV, vb + (size_t)(k0 + BK) * D,
+                                         sk_valid - k0 - BK);
+      tile::cp_async_commit();
     }
   }
-  __syncthreads();
-  for (int r = warp; r < rows; r += nwarps) {
-    write_row<T, D>(s, r, o + qoff + (size_t)r * D);
+
+  // O / l and lse; a row that saw no valid key (l == 0) is 0, lse +inf
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const float sum = tile::row_sum16(l[i]);
+    const int r = row0 + i;
+    if (r < rows) {
+      const float inv = sum == 0.f ? 0.f : 1.f / sum;
+      float* orow = o + qoff + (size_t)r * D + 4 * tx;
+#pragma unroll
+      for (int hh = 0; hh < NH; ++hh) {
+        tile::store4(orow + 64 * hh, oacc[i][4 * hh] * inv,
+                     oacc[i][4 * hh + 1] * inv, oacc[i][4 * hh + 2] * inv,
+                     oacc[i][4 * hh + 3] * inv);
+      }
+      if (lse != nullptr && tx == 0) {
+        lse[((size_t)b * Hq + h) * Sq + q0 + r] =
+            sum > 0.f ? m[i] + logf(sum) : INFINITY;
+      }
+    }
   }
 }
 
-template <typename T, int D>
-static int launch_flash(const void* q, const void* k, const void* v, void* o,
-                        int B, int Hq, int Hkv, int Sq, int Sk, int causal,
-                        int window, float softcap, float scale, int q_offset,
-                        int sk_valid, int bq, int bk, cudaStream_t stream) {
-  const size_t smem = smem_floats<D>(bq, bk) * sizeof(float);
-  auto kern = flash_fwd_kernel<T, D>;
+template <int D, int BQ, int BK>
+static int launch(const void* q, const void* k, const void* v, void* o,
+                  float* lse, int B, int Hq, int Hkv, int Sq, int Sk,
+                  int causal, int window, float softcap, float scale,
+                  int q_offset, int sk_valid, cudaStream_t stream) {
+  using L = Layout<D, BQ, BK>;
+  auto kern = flash_fwd_f32<D, BQ, BK>;
   static size_t allowed = 0;
-  if (!raise_smem_limit(kern, smem, allowed)) return (int)cudaGetLastError();
-  dim3 grid((Sq + bq - 1) / bq, Hq, B);
-  kern<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), Hq, Hkv, Sq, Sk, causal,
-      window, softcap, scale, q_offset, sk_valid, bq, bk);
+  if (!raise_smem_limit(kern, L::BYTES, allowed)) {
+    return (int)cudaGetLastError();
+  }
+  const int n_qt = (Sq + BQ - 1) / BQ;
+  dim3 grid(n_qt * Hq, B);
+  kern<<<grid, L::NT, L::BYTES, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), lse, Hq, Hkv, Sq,
+      Sk, causal, window, softcap, scale, q_offset, sk_valid);
   return (int)cudaGetLastError();
 }
+
+template <int D>
+static int dispatch(const void* q, const void* k, const void* v, void* o,
+                    float* lse, int B, int Hq, int Hkv, int Sq, int Sk,
+                    int causal, int window, float softcap, float scale,
+                    int q_offset, int sk_valid, int bq, int bk,
+                    cudaStream_t st) {
+#define REPRO_V4(BQ, BK)                                                    \
+  if (bq == BQ && bk == BK)                                                 \
+  return launch<D, BQ, BK>(q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, causal,     \
+                           window, softcap, scale, q_offset, sk_valid, st)
+  REPRO_V4(64, 32);
+  REPRO_V4(64, 64);
+  REPRO_V4(64, 128);
+  REPRO_V4(128, 32);
+  REPRO_V4(128, 64);
+  if constexpr (Layout<D, 128, 128>::BYTES <= kSmemLimit) {
+    REPRO_V4(128, 128);   // D 64 only: 260 KB at D 128
+  }
+#undef REPRO_V4
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace v4
 
 // ------------------------------------------- v3: bfloat16, wgmma and TMA
 namespace v3 {
@@ -418,9 +577,9 @@ __global__ void __launch_bounds__((NC + 1) * kWG, 1)
 flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
                 const __grid_constant__ CUtensorMap tk,
                 const __grid_constant__ CUtensorMap tv,
-                __nv_bfloat16* __restrict__ o, int Hq, int Hkv, int Sq,
-                int causal, int window, float softcap, float scale,
-                int q_offset, int sk_valid) {
+                __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                int Hq, int Hkv, int Sq, int causal, int window,
+                float softcap, float scale, int q_offset, int sk_valid) {
   constexpr int BQ = 64 * NC;
   constexpr int P = D / 64;                  // 128-byte panels per row
   constexpr uint32_t kTile = BK * D * 2;     // bytes of one K or V tile
@@ -584,7 +743,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
       mbar_arrive(&empty[s]);
     }
 
-    // O / l; a row that saw no valid key (l == 0) is 0
+    // O / l and lse; a row that saw no valid key (l == 0) is 0, lse +inf
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
       float sum = l[hh];
@@ -593,6 +752,10 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
       const float inv = sum == 0.f ? 0.f : 1.f / sum;
       const int r = row0 + 8 * hh;
       if (r < rows) {
+        if (lse != nullptr && lane % 4 == 0) {
+          lse[((size_t)b * Hq + h) * Sq + q0 + r] =
+              sum > 0.f ? m[hh] + logf(sum) : INFINITY;
+        }
         __nv_bfloat16* orow =
             o + (((size_t)b * Hq + h) * Sq + q0 + r) * D + 2 * (lane % 4);
 #pragma unroll
@@ -651,10 +814,10 @@ static bool make_map(CUtensorMap* map, const void* ptr, int D, int S, int BH,
 }
 
 template <int D, int BK, int NC>
-static int launch(const void* q, const void* k, const void* v, void* o, int B,
-                  int Hq, int Hkv, int Sq, int Sk, int causal, int window,
-                  float softcap, float scale, int q_offset, int sk_valid,
-                  cudaStream_t stream) {
+static int launch(const void* q, const void* k, const void* v, void* o,
+                  float* lse, int B, int Hq, int Hkv, int Sq, int Sk,
+                  int causal, int window, float softcap, float scale,
+                  int q_offset, int sk_valid, cudaStream_t stream) {
   constexpr int threads = (NC + 1) * kWG;
   const size_t smem = smem_bytes<D, BK, NC>();
   auto kern = flash_fwd_wgmma<D, BK, NC>;
@@ -683,20 +846,21 @@ static int launch(const void* q, const void* k, const void* v, void* o, int B,
   const int n_qt = (Sq + 64 * NC - 1) / (64 * NC);
   dim3 grid(n_qt * Hq, B);
   kern<<<grid, threads, smem, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), Hq, Hkv, Sq, causal,
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, Hq, Hkv, Sq, causal,
       window, softcap, scale, q_offset, sk_valid);
   return (int)cudaGetLastError();
 }
 
 template <int D>
 static int dispatch(const void* q, const void* k, const void* v, void* o,
-                    int B, int Hq, int Hkv, int Sq, int Sk, int causal,
-                    int window, float softcap, float scale, int q_offset,
-                    int sk_valid, int bq, int bk, cudaStream_t st) {
+                    float* lse, int B, int Hq, int Hkv, int Sq, int Sk,
+                    int causal, int window, float softcap, float scale,
+                    int q_offset, int sk_valid, int bq, int bk,
+                    cudaStream_t st) {
 #define REPRO_V3(BK, NC)                                                     \
   if (bk == BK && bq == 64 * NC)                                             \
-  return launch<D, BK, NC>(q, k, v, o, B, Hq, Hkv, Sq, Sk, causal, window,   \
-                           softcap, scale, q_offset, sk_valid, st)
+  return launch<D, BK, NC>(q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, causal,      \
+                           window, softcap, scale, q_offset, sk_valid, st)
   REPRO_V3(32, 1);
   REPRO_V3(64, 1);
   REPRO_V3(128, 1);
@@ -712,35 +876,27 @@ static int dispatch(const void* q, const void* k, const void* v, void* o,
 
 using namespace repro_torch;
 
-// dtype: 0 = float32 (v2), 1 = bfloat16 (v3). window <= 0 and softcap <= 0
-// mean none. Returns the cudaError_t of the launch (0 on success).
+// dtype: 0 = float32 (v4), 1 = bfloat16 (v3). window <= 0 and softcap <= 0
+// mean none. lse: float32 (B, Hq, Sq), or null for none. Returns the
+// cudaError_t of the launch (0 on success).
 extern "C" int repro_flash_attention(int dtype, int head_dim, const void* q,
                                      const void* k, const void* v, void* o,
-                                     int B, int Hq, int Hkv, int Sq, int Sk,
-                                     int causal, int window, float softcap,
-                                     float scale, int q_offset, int sk_valid,
-                                     int block_q, int block_k, void* stream) {
+                                     void* lse, int B, int Hq, int Hkv,
+                                     int Sq, int Sk, int causal, int window,
+                                     float softcap, float scale, int q_offset,
+                                     int sk_valid, int block_q, int block_k,
+                                     void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && head_dim == 64) {
-    return launch_flash<float, 64>(q, k, v, o, B, Hq, Hkv, Sq, Sk, causal,
-                                   window, softcap, scale, q_offset, sk_valid,
-                                   block_q, block_k, st);
-  }
-  if (dtype == 0 && head_dim == 128) {
-    return launch_flash<float, 128>(q, k, v, o, B, Hq, Hkv, Sq, Sk, causal,
-                                    window, softcap, scale, q_offset,
-                                    sk_valid, block_q, block_k, st);
-  }
-  if (dtype == 1 && head_dim == 64) {
-    return v3::dispatch<64>(q, k, v, o, B, Hq, Hkv, Sq, Sk, causal, window,
-                            softcap, scale, q_offset, sk_valid, block_q,
-                            block_k, st);
-  }
-  if (dtype == 1 && head_dim == 128) {
-    return v3::dispatch<128>(q, k, v, o, B, Hq, Hkv, Sq, Sk, causal, window,
-                             softcap, scale, q_offset, sk_valid, block_q,
-                             block_k, st);
-  }
+  float* l = static_cast<float*>(lse);
+#define REPRO_K1(NS, DD)                                                    \
+  return NS::dispatch<DD>(q, k, v, o, l, B, Hq, Hkv, Sq, Sk, causal, window, \
+                          softcap, scale, q_offset, sk_valid, block_q,       \
+                          block_k, st)
+  if (dtype == 0 && head_dim == 64) REPRO_K1(v4, 64);
+  if (dtype == 0 && head_dim == 128) REPRO_K1(v4, 128);
+  if (dtype == 1 && head_dim == 64) REPRO_K1(v3, 64);
+  if (dtype == 1 && head_dim == 128) REPRO_K1(v3, 128);
+#undef REPRO_K1
   return (int)cudaErrorInvalidValue;
 }
 

@@ -34,11 +34,14 @@ _F = ctypes.c_float
 # C signatures of csrc/*.cu (pointers and the stream as void*, so ctypes
 # never narrows a 64-bit address to a 32-bit int)
 _SIGNATURES = {
-    "repro_flash_attention": [_I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                              _I, _F, _F, _I, _I, _I, _I, _P],
-    "repro_flash_attention_bwd": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                  _P, _I, _I, _I, _I, _I, _I, _I, _F, _F,
-                                  _P],
+    # dtype, D; q k v o lse (null: none); B Hq Hkv Sq Sk causal window;
+    # softcap scale; q_offset sk_valid block_q block_k; the stream
+    "repro_flash_attention": [_I, _I] + [_P] * 5 + [_I] * 7 + [_F, _F]
+    + [_I] * 4 + [_P],
+    # dtype, D; q k v o dO lse dq dk dv, the scratch (delta, dK and dV
+    # shares); B Hq Hkv Sq Sk causal window; softcap scale; the stream
+    "repro_flash_attention_bwd": [_I, _I] + [_P] * 12 + [_I] * 7 + [_F, _F]
+    + [_P],
     "repro_decode_attention": [_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                _I, _F, _F, _I, _P],
     "repro_paged_decode_attention": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _I,

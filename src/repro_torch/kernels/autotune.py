@@ -57,8 +57,8 @@ class StaleCacheError(ValueError):
 # rows are the reference package's; the "cuda" rows are the Hopper
 # kernels' own parameters and their wrappers' defaults. Flash tiles are the
 # ones both of K1's kernels take (bf16 v3: one or two 64-row warpgroups;
-# f32 v2), since a bucket does not say the dtype; K2's block_kv is the keys
-# of one KV split.
+# f32 v4: the same tiles), since a bucket does not say the dtype; K2's
+# block_kv is the keys of one KV split.
 DEFAULT_PARAMS: Dict[Tuple[str, str], Dict[str, object]] = {
     ("flash_attention", "ref"): {"block_q": 1024},
     ("flash_attention", "cuda"): {"block_q": 64, "block_kv": 64},

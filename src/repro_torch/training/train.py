@@ -79,9 +79,10 @@ def loss_and_grads(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
 def make_train_step(cfg: ModelConfig, opt: OPT.AdamWConfig, *,
                     backend: str = "auto", remat: bool = False):
     """Returns train_step(params, opt_state, batch) -> (params, opt_state,
-    metrics). On the card, a family whose kernels have no backward (K5:
-    mamba2, zamba2) raises at its first step rather than train without
-    gradients."""
+    metrics). On the card every family trains through kernels that have a
+    backward (K1 with K1-bwd, K5 with K5-bwd); the decode-only kernels
+    (K2–K4) raise under grad rather than return outputs without gradients,
+    and a training step never calls them."""
 
     def train_step(params, opt_state, batch):
         loss, parts, grads = loss_and_grads(params, cfg, batch,

@@ -9,19 +9,21 @@ attention: ``torch.autograd`` of the port's plain version
 gradient, so its plain function is the target). What the mirror copies
 from the kernel:
 
+* each row's lse comes from the forward: K1 v4's mirror
+  (tests/test_torch_flash_f32.py), which the kernel's forward computes in
+  the same walk; no pass over the keys recomputes it;
 * tiles of 64 query rows by 64 keys, and the same tile ranges: a q tile
   visits key tiles from its window's first one to the causal diagonal, a k
   tile visits the q tiles from the diagonal to its window's last one;
-* pass 0 recomputes each row's softmax max and sum online over the key
-  tiles (scores only, no P·V), lse = m + log l (+inf for a row with no
-  valid key), and delta = rowsum(dO ∘ O) from the forward's output;
-* pass 1 walks, per KV head, the group's G query heads in order and their
-  q tiles, recomputes P = exp(S − lse), and accumulates dV += Pᵀ·dO and
-  dK += dSᵀ·(Q·D^-0.5) with dS = P ∘ (dO·Vᵀ − delta) ∘ (1 − tanh²) under a
-  softcap;
-* pass 2 accumulates dQ += dS·K over the visible key tiles, then scales by
-  D^-0.5;
-* Q is scaled by D^-0.5 as it is loaded (the forward's order of rounding).
+* delta = rowsum(dO ∘ O) from the forward's output;
+* the dK/dV pass runs per (k tile, query head): over its q tiles it forms
+  dPᵀ = V·dOᵀ and Sᵀ = K·Qᵀ, P = exp(S·D^-0.5 capped − lse) and dS = P ∘
+  (dP − delta) ∘ (1 − tanh²) under a softcap, and accumulates dV += Pᵀ·dO
+  and dK += dSᵀ·Q, dK scaled by D^-0.5 at the end; with one query head per
+  KV head that is dK and dV, else each head's share, summed over the group
+  in head order by a last pass;
+* the dQ pass forms S and dP again per (q tile, query head) over the
+  visible key tiles and accumulates dQ += dS·K, then scales by D^-0.5.
 
 Tolerance: float32 2e-5·max(1, ‖ref‖∞), as on the card. This mirror lives
 here, not in the package.
@@ -66,70 +68,59 @@ def _key_range(q0, rows, Sk, causal, window):
     return (begin // TILE) * TILE, end
 
 
-def _ds_tile(qs, dos, kt, vt, lse, delta, ok, softcap):
-    """P and dS of one tile: qs/dos (..., rows, D), kt/vt (..., keys, D),
-    lse/delta (..., rows)."""
-    x, dcap = _capped(qs @ kt.transpose(-1, -2), softcap)
+def _ds_tile(s, dp, lse, delta, ok, softcap, scale):
+    """P and dS of one tile from the unscaled scores s and dP = dO·Vᵀ
+    (..., rows, keys), lse/delta (..., rows)."""
+    x, dcap = _capped(s * scale, softcap)
     p = torch.where(ok, torch.exp(x - lse[..., None]), 0.0)
-    dp = dos @ vt.transpose(-1, -2)
     return p, p * (dp - delta[..., None]) * dcap
 
 
-def k1_bwd_mirror(q, k, v, o, do, *, causal=True, window=None, softcap=None):
-    """K1-bwd's three passes, float32. q/o/do (B, Hq, Sq, D), k/v (B, Hkv,
-    Sk, D). Returns (dq, dk, dv, lse)."""
+def k1_bwd_mirror(q, k, v, o, do, lse, *, causal=True, window=None,
+                  softcap=None):
+    """K1-bwd's passes, float32, on the forward's lse. q/o/do (B, Hq, Sq,
+    D), k/v (B, Hkv, Sk, D), lse (B, Hq, Sq). Returns (dq, dk, dv)."""
     B, Hq, Sq, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
     G = Hq // Hkv
     scale = D ** -0.5
-    k, v, o, do = (t.float() for t in (k, v, o, do))
-    qs = q.float() * scale                      # scaled as it is loaded
+    q, k, v, o, do = (t.float() for t in (q, k, v, o, do))
     kh = k.repeat_interleave(G, dim=1)          # the KV head of each q head
     vh = v.repeat_interleave(G, dim=1)
-
-    # pass 0: lse by the online max and sum over key tiles; delta
     delta = (do * o).sum(-1)
-    lse = torch.full((B, Hq, Sq), math.inf)
-    for q0 in range(0, Sq, TILE):
-        rows = min(TILE, Sq - q0)
-        m = torch.full((B, Hq, rows), -math.inf)
-        l = torch.zeros((B, Hq, rows))
-        kb, ke = _key_range(q0, rows, Sk, causal, window)
-        for k0 in range(kb, ke, TILE):
-            nk = min(TILE, Sk - k0)
-            x, _ = _capped(qs[:, :, q0:q0 + rows] @
-                           kh[:, :, k0:k0 + nk].transpose(-1, -2), softcap)
-            ok = _mask(q0, rows, k0, nk, Sq, Sk, causal, window)
-            x = torch.where(ok, x, -math.inf)
-            m_new = torch.maximum(m, x.amax(-1))
-            live = m_new > -math.inf
-            mn = torch.where(live, m_new, 0.0)
-            s = torch.where(live[..., None], torch.exp(x - mn[..., None]), 0.0)
-            l = torch.where(live, l * torch.exp(m - mn) + s.sum(-1), l)
-            m = torch.where(live, m_new, m)
-        lse[:, :, q0:q0 + rows] = torch.where(l > 0, m + torch.log(l),
-                                              math.inf)
 
-    # pass 1: dK and dV per (k tile, KV head), the group's heads in order
-    dk = torch.zeros((B, Hkv, Sk, D))
-    dv = torch.zeros((B, Hkv, Sk, D))
+    # dK and dV per (k tile, query head): each head's share
+    dk_share = torch.zeros((B, Hq, Sk, D))
+    dv_share = torch.zeros((B, Hq, Sk, D))
     for k0 in range(0, Sk, TILE):
         nk = min(TILE, Sk - k0)
-        kt, vt = k[:, :, k0:k0 + nk], v[:, :, k0:k0 + nk]
+        kt, vt = kh[:, :, k0:k0 + nk], vh[:, :, k0:k0 + nk]
         qb = k0 if causal else 0
         qe = min(Sq, k0 + nk - 1 + window) if window is not None else Sq
+        dk_t = torch.zeros((B, Hq, nk, D))
+        dv_t = torch.zeros((B, Hq, nk, D))
+        for q0 in range(qb, qe, TILE):
+            rows = min(TILE, Sq - q0)
+            sl = (slice(None), slice(None), slice(q0, q0 + rows))
+            ok = _mask(q0, rows, k0, nk, Sq, Sk, causal, window)
+            dpt = vt @ do[sl].transpose(-1, -2)           # dPᵀ = V·dOᵀ
+            st = kt @ q[sl].transpose(-1, -2)             # Sᵀ = K·Qᵀ
+            p, ds = _ds_tile(st.transpose(-1, -2), dpt.transpose(-1, -2),
+                             lse[sl], delta[sl], ok, softcap, scale)
+            dv_t += p.transpose(-1, -2) @ do[sl]
+            dk_t += ds.transpose(-1, -2) @ q[sl]
+        dk_share[:, :, k0:k0 + nk] = dk_t * scale
+        dv_share[:, :, k0:k0 + nk] = dv_t
+    if G == 1:
+        dk, dv = dk_share, dv_share
+    else:                                      # the group sum, head order
+        dk = torch.zeros((B, Hkv, Sk, D))
+        dv = torch.zeros((B, Hkv, Sk, D))
         for g in range(G):
-            heads = torch.arange(Hkv) * G + g
-            for q0 in range(qb, qe, TILE):
-                rows = min(TILE, Sq - q0)
-                sl = (slice(None), heads, slice(q0, q0 + rows))
-                ok = _mask(q0, rows, k0, nk, Sq, Sk, causal, window)
-                p, ds = _ds_tile(qs[sl], do[sl], kt, vt, lse[sl], delta[sl],
-                                 ok, softcap)
-                dv[:, :, k0:k0 + nk] += p.transpose(-1, -2) @ do[sl]
-                dk[:, :, k0:k0 + nk] += ds.transpose(-1, -2) @ qs[sl]
+            dk += dk_share[:, g::G]
+            dv += dv_share[:, g::G]
 
-    # pass 2: dQ per (q tile, q head) over the visible key tiles
+    # dQ per (q tile, query head) over the visible key tiles
     dq = torch.zeros((B, Hq, Sq, D))
     for q0 in range(0, Sq, TILE):
         rows = min(TILE, Sq - q0)
@@ -137,12 +128,19 @@ def k1_bwd_mirror(q, k, v, o, do, *, causal=True, window=None, softcap=None):
         kb, ke = _key_range(q0, rows, Sk, causal, window)
         for k0 in range(kb, ke, TILE):
             nk = min(TILE, Sk - k0)
+            kt, vt = kh[:, :, k0:k0 + nk], vh[:, :, k0:k0 + nk]
             ok = _mask(q0, rows, k0, nk, Sq, Sk, causal, window)
-            _, ds = _ds_tile(qs[sl], do[sl], kh[:, :, k0:k0 + nk],
-                             vh[:, :, k0:k0 + nk], lse[sl], delta[sl], ok,
-                             softcap)
-            dq[sl] += ds @ kh[:, :, k0:k0 + nk]
-    return dq * scale, dk, dv, lse
+            _, ds = _ds_tile(q[sl] @ kt.transpose(-1, -2),
+                             do[sl] @ vt.transpose(-1, -2), lse[sl],
+                             delta[sl], ok, softcap, scale)
+            dq[sl] += ds @ kt
+    return dq * scale, dk, dv
+
+
+def _forward(q, k, v, **kw):
+    """K1 v4's mirror: (out, lse), as the forward hands them to K1-bwd."""
+    from test_torch_flash_f32 import k1_fwd_mirror
+    return k1_fwd_mirror(q, k, v, **kw)
 
 
 def _inputs(seed, B, hq, hkv, Sq, Sk, D):
@@ -180,8 +178,8 @@ CASES = [
 def test_mirror_matches_torch_autograd_and_jax_grad(B, hq, hkv, Sq, Sk, D, kw):
     qn, kn, vn, don = _inputs(Sq * 7 + hq, B, hq, hkv, Sq, Sk, D)
     q, k, v, do = (torch.from_numpy(a) for a in (qn, kn, vn, don))
-    o = FA.flash_attention_ref(q, k, v, **kw)
-    dq, dk, dv, _ = k1_bwd_mirror(q, k, v, o, do, **kw)
+    o, lse = _forward(q, k, v, **kw)
+    dq, dk, dv = k1_bwd_mirror(q, k, v, o, do, lse, **kw)
     # the port's plain version: torch.autograd of flash_attention_ref
     for name, got, want in zip(("dq", "dk", "dv"), (dq, dk, dv),
                                FA.flash_attention_bwd_ref(q, k, v, do, **kw)):
@@ -204,8 +202,9 @@ def test_wrapper_on_the_host_is_the_plain_version():
     qn, kn, vn, don = _inputs(5, 1, 4, 2, 40, 40, 64)
     q, k, v, do = (torch.from_numpy(a).to(torch.bfloat16)
                    for a in (qn, kn, vn, don))
+    out, lse = FA._flash_attention_fwd(q, k, v)
     before = FA.flash_attention_bwd.launches
-    got = FA.flash_attention_bwd(q, k, v, FA.flash_attention_ref(q, k, v), do)
+    got = FA.flash_attention_bwd(q, k, v, out, do, lse)
     want = FA.flash_attention_bwd_ref(q, k, v, do)
     assert FA.flash_attention_bwd.launches == before
     for g, w in zip(got, want):
@@ -213,25 +212,29 @@ def test_wrapper_on_the_host_is_the_plain_version():
 
 
 def test_lse_is_the_row_logsumexp_and_empty_rows_get_no_gradient():
-    """Pass 0's lse equals logsumexp over each row's valid logits; a row
-    whose window holds no key (causal, Sq > Sk) has lse = +inf and gives
-    no gradient in any pass, where the kernel's forward writes 0."""
+    """The forward's lse (K1 v4's mirror, and the port's plain lse) equals
+    logsumexp over each row's valid logits; a row whose window holds no key
+    (causal, Sq > Sk) has lse = +inf and output 0 from the forward, and
+    gets no gradient in any pass of K1-bwd."""
     B, hq, hkv, Sq, Sk, D, window = 1, 2, 1, 90, 40, 64, 20
     qn, kn, vn, don = _inputs(11, B, hq, hkv, Sq, Sk, D)
     q, k, v, do = (torch.from_numpy(a) for a in (qn, kn, vn, don))
-    o = FA.flash_attention_ref(q, k, v, causal=True, window=window)
+    o, lse = _forward(q, k, v, causal=True, window=window)
     qpos = torch.arange(Sq)
     empty = qpos - (Sk - 1) >= window                 # no key in the window
-    o[:, :, empty] = 0.0                              # the kernel's forward
-    dq, dk, dv, lse = k1_bwd_mirror(q, k, v, o, do, causal=True,
-                                    window=window)
     assert empty.any() and torch.isinf(lse[:, :, empty]).all()
-    assert (dq[:, :, empty] == 0).all()
+    assert (lse[:, :, empty] > 0).all() and (o[:, :, empty] == 0).all()
+    plain = FA.flash_attention_lse_ref(q, k, v, causal=True, window=window)
+    assert torch.equal(torch.isinf(plain), torch.isinf(lse))
     logits = (q * D ** -0.5) @ k.repeat_interleave(hq // hkv, 1).transpose(-1, -2)
     ok = FA._ref._attn_mask(Sq, Sk, causal=True, window=window)
     want = torch.logsumexp(torch.where(ok, logits, -math.inf), dim=-1)
-    torch.testing.assert_close(lse[:, :, ~empty], want[:, :, ~empty],
-                               atol=2e-5, rtol=2e-5)
+    for got in (lse, plain):
+        torch.testing.assert_close(got[:, :, ~empty], want[:, :, ~empty],
+                                   atol=2e-5, rtol=2e-5)
+    dq, dk, dv = k1_bwd_mirror(q, k, v, o, do, lse, causal=True,
+                               window=window)
+    assert (dq[:, :, empty] == 0).all()
     # rows with a key: the gradients are torch's over those rows alone
     keep = ~empty
     qk, dok = q[:, :, keep].clone(), do[:, :, keep].clone()

@@ -163,19 +163,102 @@ def test_flash_bf16_v3_every_tile_on_card(D):
                 atol=2e-2, rtol=2e-2, msg=f"tile {bq} x {bk}")
 
 
+# the edges of both K1 kernels: ragged Sq, q offsets either side of 0,
+# softcap, windows starting inside a tile, sk_valid < Sk, D 64 and 128,
+# Hkv 8 and 32, Sq != Sk
+FLASH_EDGES = [
+    dict(Sq=37, Sk=37), dict(Sq=300, Sk=300), dict(Sq=512, Sk=512),
+    dict(Sq=37, Sk=101, q_offset=64), dict(Sq=40, Sk=40, q_offset=-4),
+    dict(Sq=300, Sk=300, D=64, q_offset=-70, window=33),
+    dict(Sq=64, Sk=64, softcap=30.0), dict(Sq=200, Sk=200, D=64, window=17),
+    dict(Sq=100, Sk=100, sk_valid=77), dict(Sq=128, Sk=128, Hkv=32),
+    dict(Sq=300, Sk=300, D=64, Hkv=32, window=8192),
+    dict(Sq=512, Sk=512, D=64, window=4096)]
+
+
+def _flash_case(case, dtype, seed):
+    c = dict(case)
+    Sq, Sk, D, Hkv = c.pop("Sq"), c.pop("Sk"), c.pop("D", 128), \
+        c.pop("Hkv", 8)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q = _randn(gen, (1, 32, Sq, D), dtype)
+    k = _randn(gen, (1, Hkv, Sk, D), dtype)
+    v = _randn(gen, (1, Hkv, Sk, D), dtype)
+    rows = _flash_rows(Sq, c.get("q_offset", 0), c.get("window"),
+                       c.get("sk_valid", Sk)).cuda()
+    return q, k, v, c, rows
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", FLASH_EDGES)
+def test_flash_f32_v4_matches_plain_on_card(case):
+    """K1 v4 (f32, FMA micro-tiles) at the edges, within 2e-5 of its plain
+    version on rows with a valid key; the other rows are 0."""
+    _need_card()
+    q, k, v, c, rows = _flash_case(case, torch.float32, 9)
+    got = FA.flash_attention(q, k, v, **c)
+    want = FA.flash_attention_ref(q, k, v, **c)
+    torch.testing.assert_close(got[:, :, rows], want[:, :, rows],
+                               atol=2e-5, rtol=2e-5)
+    assert torch.count_nonzero(got[:, :, ~rows]) == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_f32_v4_every_tile_on_card(D):
+    """Every tile v4 takes within shared memory; 128 x 128 fits at D 64
+    only."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    q = _randn(gen, (2, 8, 300, D), torch.float32)
+    k = _randn(gen, (2, 2, 300, D), torch.float32)
+    v = _randn(gen, (2, 2, 300, D), torch.float32)
+    want = FA.flash_attention_ref(q, k, v, window=100)
+    tiles_q, tiles_k = FA.TILES[torch.float32]
+    taken = [(bq, bk) for bq in tiles_q for bk in tiles_k
+             if FA.smem_bytes(bq, bk, D) <= FA.SMEM_BYTES]
+    assert len(taken) == (6 if D == 64 else 5)
+    for bq, bk in taken:
+        torch.testing.assert_close(
+            FA.flash_attention(q, k, v, window=100, block_q=bq, block_k=bk),
+            want, atol=2e-5, rtol=2e-5, msg=f"tile {bq} x {bk}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FLASH_EDGES)
+def test_flash_lse_matches_plain_on_card(case, dtype):
+    """The lse v3 (bf16) and v4 (f32) write for K1-bwd: within 2e-5 / 2e-2
+    of flash_attention_lse_ref on rows with a valid key, +inf exactly on
+    the others; asking for it leaves the output's bits as they are."""
+    _need_card()
+    q, k, v, c, rows = _flash_case(case, dtype, 11)
+    before = FA.flash_attention.launches
+    out, lse = FA._flash_attention_fwd(q, k, v, **c)
+    assert FA.flash_attention.launches == before + 1
+    assert lse.dtype == torch.float32 and lse.shape == q.shape[:3]
+    assert torch.equal(out, FA.flash_attention(q, k, v, **c))
+    want = FA.flash_attention_lse_ref(q, k, v, **c)
+    tol = TOL[dtype]
+    torch.testing.assert_close(lse[:, :, rows], want[:, :, rows], atol=tol,
+                               rtol=tol)
+    assert torch.equal(lse == torch.inf, (~rows).expand_as(lse))
+
+
 @pytest.mark.gpu
 def test_flash_refuses_tiles_its_dtype_kernel_does_not_take():
-    """v3 (bf16) takes block_q 64/128 and block_k 32/64/128; v2 (f32) also
-    block_q 16/32 and block_k 96. A refusal launches nothing."""
+    """v3 (bf16) and v4 (f32) take block_q 64/128 and block_k 32/64/128
+    (v4 within shared memory); any other tile is refused for both, and a
+    refusal launches nothing."""
     _need_card()
     q = torch.zeros((1, 2, 64, 64), device="cuda")
     before = FA.flash_attention.launches
-    for tiles in (dict(block_q=32), dict(block_q=16), dict(block_k=96)):
-        with pytest.raises(ValueError, match="takes block_q"):
-            FA.flash_attention(q.bfloat16(), q.bfloat16(), q.bfloat16(),
-                               **tiles)
+    for t in (q, q.bfloat16()):
+        for tiles in (dict(block_q=32), dict(block_q=16), dict(block_k=96)):
+            with pytest.raises(ValueError, match="takes block_q"):
+                FA.flash_attention(t, t, t, **tiles)
     assert FA.flash_attention.launches == before
-    for tiles in (dict(block_q=32), dict(block_k=96)):
+    for tiles in (dict(block_q=128, block_k=32), dict(block_k=128)):
         torch.testing.assert_close(FA.flash_attention(q, q, q, **tiles),
                                    FA.flash_attention_ref(q, q, q))
 
@@ -933,20 +1016,23 @@ def _bwd_close(got, want, dtype):
     (1, 4, 4, 150, 150, 64, dict(causal=True, window=17)),
     (1, 4, 2, 96, 96, 128, dict(causal=True, softcap=30.0, window=33)),
     (2, 4, 4, 24, 150, 64, dict(causal=False)),              # cross
-    (1, 4, 4, 150, 150, 64, dict(causal=False))])
+    (1, 4, 4, 150, 150, 64, dict(causal=False)),
+    (2, 15, 5, 300, 300, 64, dict(causal=True)),             # smollm ragged
+    (1, 4, 2, 96, 96, 64, dict(causal=True, softcap=2.0, window=33))])
 def test_flash_bwd_matches_plain_on_card(dtype, B, hq, hkv, Sq, Sk, D, kw):
-    """K1-bwd against autograd of the plain version at reduced shapes, and
-    the same bits on a second call (no atomics)."""
+    """K1-bwd, on the lse its forward wrote, against autograd of the plain
+    version at reduced shapes, and the same bits on a second call (no
+    atomics)."""
     _need_card()
     gen = torch.Generator(device="cuda").manual_seed(Sq + hq)
     q = _randn(gen, (B, hq, Sq, D), dtype)
     k = _randn(gen, (B, hkv, Sk, D), dtype)
     v = _randn(gen, (B, hkv, Sk, D), dtype)
     do = _randn(gen, (B, hq, Sq, D), dtype)
-    out = FA.flash_attention(q, k, v, **kw)
+    out, lse = FA._flash_attention_fwd(q, k, v, **kw)
     before = FA.flash_attention_bwd.launches
-    got = FA.flash_attention_bwd(q, k, v, out, do, **kw)
-    again = FA.flash_attention_bwd(q, k, v, out, do, **kw)
+    got = FA.flash_attention_bwd(q, k, v, out, do, lse, **kw)
+    again = FA.flash_attention_bwd(q, k, v, out, do, lse, **kw)
     assert FA.flash_attention_bwd.launches == before + 2
     assert all(g.dtype == dtype for g in got)
     assert all(torch.equal(a, b) for a, b in zip(got, again))

@@ -280,8 +280,11 @@ def test_kernel_sources_and_build_are_lazy():
     text = (_build.CSRC_DIR / "flash_attention_bwd.cu").read_text()
     assert "repro/kernels/flash_attention.py" in text
     assert 'extern "C" int repro_flash_attention_bwd(' in text
-    # dtype, D, q k v o dO dq dk dv lse delta, 7 ints, 2 floats, the stream
-    assert len(_build._SIGNATURES["repro_flash_attention_bwd"]) == 22
+    # dtype, D, q k v o dO, the forward's lse, dq dk dv, the scratch (delta,
+    # dK and dV shares), 7 ints, 2 floats, the stream
+    assert len(_build._SIGNATURES["repro_flash_attention_bwd"]) == 24
+    # K1 takes one more pointer than it returns: the lse it may write
+    assert len(_build._SIGNATURES["repro_flash_attention"]) == 21
     # K5-bwd: the gradient of the SSD scan, which has no backward either
     text = (_build.CSRC_DIR / "ssm_scan_bwd.cu").read_text()
     assert "repro/kernels/ssm_scan.py" in text and "_ssd_kernel" in text
