@@ -10,12 +10,15 @@ Phases, each printing its own lines; any failure exits non-zero:
   2. build   — the Hopper kernels of src/repro_torch/csrc, built with nvcc
                (build seconds and -Xptxas -v output, and a line per K1 v3
                and v4, K2 v3 / K3 v2 / K4 v2 (split and combine; the int8
-               split instantiations labelled K4) and K5 v2 (three passes)
-               kernel with its registers, shared memory and spills; a spill
-               in K1 v3 or v4, in a bf16 K5 v2 kernel or in a four-row bf16
-               K4 split kernel (the int8 serving paths', D 64 and 128)
-               fails; K1-bwd's four kernels and K5-bwd's six are listed
-               too, and a spill there fails);
+               split instantiations labelled K4) and K5 (bf16 v2's three
+               passes, float32 v3's chunk-state and outputs passes) kernel
+               with its registers, shared memory and spills; a spill in K1
+               v3 or v4, in any K5 kernel or in a four-row bf16 K4 split
+               kernel (the int8 serving paths', D 64 and 128) fails;
+               K1-bwd's four kernels and K5-bwd's six (v2) are listed too,
+               and a spill there fails; then the threads, dynamic shared
+               memory and blocks an SM of K5 v3's and K5-bwd v2's
+               micro-tile kernels at the training shapes);
   3. kernels — K1 flash prefill, K2 dense decode and K3 paged decode held
                against their plain versions at mistral-7b's attention shapes,
                and K1 and K2 at zamba2-1.2b's shared block's (32 heads, no
@@ -33,8 +36,9 @@ Phases, each printing its own lines; any failure exits non-zero:
                through the block tables) at pool blocks of 16 and 128, and
                at kv_len 0 and on both sides of a split edge for block_k
                32/64/128, pool blocks of 16 and 32, G = 1 and 4, a window
-               of 71, captured into a CUDA graph; K5 (v2, three passes), the
-               SSD chunked scan, against its chunked plain version and the
+               of 71, captured into a CUDA graph; K5 (three passes: bf16
+               v2, float32 v3), the SSD chunked scan, against its chunked
+               plain version and the
                sequential oracle at mamba2-130m's and zamba2-1.2b's shapes
                (chunk 128, S = 512 and a ragged 300) and at their reduced
                shapes (P = N = 32, chunk 32), f32 2e-5, bf16 5e-2, y and the
@@ -73,9 +77,9 @@ Phases, each printing its own lines; any failure exits non-zero:
                backward of one SDPA call (K/V expanded; a yardstick the
                port never calls) and by kernel (a torch.profiler trace),
                and K1's float32 forward (v4, with its lse) beside its plain
-               version and SDPA, and by tile; then K5-bwd, the gradient of K5,
-               against torch.autograd of its plain version, dx, ddt, dA, dB
-               and dC each within f32 2e-5 / bf16 5e-2 times
+               version and SDPA, and by tile; then K5-bwd (v2), the gradient
+               of K5, against torch.autograd of its plain version, dx, ddt,
+               dA, dB and dC each within f32 2e-5 / bf16 5e-2 times
                max(1, |ref|inf), both dtypes, with and without a
                final-state gradient, at mamba2-130m's training shape (B 8,
                S 512, H 24, P 64, N 128, chunk 128), zamba2-1.2b's (B 2, H
@@ -84,8 +88,8 @@ Phases, each printing its own lines; any failure exits non-zero:
                bits; then, in float32, K5-bwd timed beside its plain
                version at both training shapes (no single library call:
                library_ms null) and by kernel (a torch.profiler trace),
-               and K5's float32 forward beside its plain version and by
-               pass at both; bounds at the float32 peak (67e12, no TF32);
+               and K5's float32 forward (v3) beside its plain version and
+               by pass at both; bounds at the float32 peak (67e12, no TF32);
   3c. tune   — the port's autotuner on the card (backend "cuda") over its
                default shapes and the int8 serving bucket b4c1024; the cache
                is written under build/ and not installed;
@@ -184,7 +188,9 @@ Phases, each printing its own lines; any failure exits non-zero:
                card bit for bit; then full zamba2-1.2b (38 layers, ~24 GB
                of parameters and AdamW state), batch 2 of 512, 5 steps:
                finite losses and gradient norms, K5 / K5-bwd 38 launches a
-               step and K1 / K1-bwd 6.
+               step and K1 / K1-bwd 6; and one more zamba2-1.2b step under
+               torch.profiler: its wall against its kernels' device time,
+               the kernels and host operators that took the most.
 
 Every serve phase collects garbage and restarts the peak memory count
 first, and prints the bytes still allocated. Phases 5, 6 and 9 run with no
@@ -292,9 +298,9 @@ def phase_build():
             f"spill stores/loads {spill} bytes")
         if k4:
             int8.append(k4)
-        if spill != "0/0" and ("flash_fwd_" in kern or "bwd_" in kern or (
-                "ssd_" in kern and "__nv_bfloat16" in kern) or (
-                k4 and k4[0] == "bf16" and k4[2] == 4)):
+        if spill != "0/0" and ("flash_fwd_" in kern or "bwd_" in kern
+                               or "ssd_" in kern
+                               or (k4 and k4[0] == "bf16" and k4[2] == 4)):
             spills.append(kern)
     # K4's split kernel: q float32 or bf16 x D 64 or 128 x R 1 or 4 (a
     # library found on disk was built by an earlier run: no ptxas output)
@@ -304,13 +310,19 @@ def phase_build():
         say("  ptxas: library found on disk, not rebuilt; no compiler "
             "report in this run")
     if spills:
-        fail(f"ptxas reports spills in K1 v3 or v4, K1-bwd, K5-bwd, bf16 K5 "
-             f"v2 or a four-row bf16 K4 split kernel: {spills}")
+        fail(f"ptxas reports spills in K1 v3 or v4, K1-bwd, K5, K5-bwd or a "
+             f"four-row bf16 K4 split kernel: {spills}")
+    from repro_torch.kernels import ssm_scan as SS
+    for arch, (_, _, _, P, N, L) in SSD_TRAIN.items():
+        say(f"  layout {arch} P={P} N={N} chunk={L}: " + " ".join(
+            f"{k}={t}thr/{b}B/{SS.blocks_per_sm(b)}per-SM"
+            for k, (t, b) in SS.layouts(P, N, L).items()))
 
 
 REPORTED_KERNELS = ("flash_fwd_wgmma", "flash_fwd_f32", "decode_split_kernel",
                     "decode_combine_kernel", "ssd_chunk_state_kernel",
-                    "ssd_state_scan_kernel", "ssd_output_kernel",
+                    "ssd_chunk_state_f32", "ssd_state_scan_kernel",
+                    "ssd_output_kernel", "ssd_output_f32",
                     "bwd_delta_kernel", "bwd_dkdv_kernel", "bwd_dq_kernel",
                     "bwd_group_sum_kernel", "ssd_bwd_")
 
@@ -329,8 +341,8 @@ def _int8_split(kern):
 
 def _ptxas_report(log):
     """(kernel, registers, static smem bytes, "stores/loads" spill bytes) of
-    every K1 v3 and v4, K2 v3 / K3 v2 / K4 v2, K5 v2, K1-bwd and K5-bwd
-    instantiation in nvcc's -Xptxas -v output."""
+    every K1 v3 and v4, K2 v3 / K3 v2 / K4 v2, K5 v2 and v3, K1-bwd and
+    K5-bwd instantiation in nvcc's -Xptxas -v output."""
     import re
     out, name, spill = [], None, "?"
     for line in log.splitlines():
@@ -2826,11 +2838,52 @@ def _remat_step(torch, arch, res, batch, per_layer):
              f"{want}")
 
 
+def _profiled_step(torch, arch, res, batch):
+    """One more AdamW step of ``arch`` on its trained weights under
+    torch.profiler: the step's host wall beside the device time its kernels
+    hold (their sum, so the rest of the wall is the device idle), and the
+    kernels and host operators that take the most. What phase 10's wall
+    for ``arch`` is spent on."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.training import data as TD
+    from repro_torch.training import optimizer as OPT
+    from repro_torch.training import train as T
+    cfg = res["cfg"]
+    b = next(TD.arithmetic_stream(cfg, batch, TRAIN_S, 1, seed=SEED + 1,
+                                  device="cuda"))
+    step = T.make_train_step(cfg, OPT.AdamWConfig(lr=3e-3, warmup_steps=5,
+                                                  total_steps=6))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = step(res["params"], res["state"], b)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    del out
+    events = prof.key_averages()
+    kernels = [e for e in events if str(e.device_type).endswith("CUDA")]
+    ops = [e for e in events if str(e.device_type).endswith("CPU")]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+
+    def top(evs, ms):
+        return " ".join(f"{e.key[:48]}={ms(e):.1f}" for e in sorted(
+            evs, key=ms, reverse=True)[:6])
+    say(f"  10 {arch} one more step under torch.profiler: wall "
+        f"{wall * 1e3:.1f} ms (profiled), device busy {busy:.1f} ms "
+        f"({100 * busy / (wall * 1e3):.1f}%); device ms by kernel: "
+        f"{top(kernels, lambda e: e.self_device_time_total / 1e3)}; host "
+        f"self ms by operator: "
+        f"{top(ops, lambda e: e.self_cpu_time_total / 1e3)}")
+
+
 def phase_train(torch, card):
     """Phase 10: full smollm-360m (32 layers) and full mamba2-130m (24), B 8,
     20 steps each, and full zamba2-1.2b (38), B 2, 5 steps, float32,
     through ``repro_torch.launch.train``'s code path; a --remat step on
-    smollm-360m and on mamba2-130m; smollm's checkpoint round trip."""
+    smollm-360m and on mamba2-130m; smollm's checkpoint round trip; one
+    more zamba2-1.2b step under torch.profiler (its wall against the
+    device time of its kernels)."""
     import shutil
     from repro_torch.training import checkpoint as CKPT
     from repro_torch.training import optimizer as OPT
@@ -2887,6 +2940,7 @@ def phase_train(torch, card):
     out[f"ssd_scan@{ZAMBA}-train"] = launches["ssd_scan"]
     out[f"flash_attention_bwd@{ZAMBA}"] = launches["flash_attention_bwd"]
     out[f"flash_attention@{ZAMBA}-train"] = launches["flash_attention"]
+    _profiled_step(torch, ZAMBA, res, ZAMBA_TRAIN_B)
     del res
     torch.cuda.empty_cache()
     return out

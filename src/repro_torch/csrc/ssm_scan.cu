@@ -19,42 +19,57 @@
 // blocks for mamba2-130m at one lane). Here the carry is split out, as in
 // the chunked plain version, and a call is three device kernels on one
 // stream:
-//   1. ssd_chunk_state_kernel, one block per (chunk, head, lane): cum, the
-//      chunk's total decay and its local state (x * w)^T @ B with
-//      w_j = exp(cum_L - cum_j) dt_j, written to a float32 workspace
-//      (B, H, chunks, P, N) beside the totals (B, H, chunks);
+//   1. ssd_chunk_state_kernel (float32: ssd_chunk_state_f32), one block per
+//      (chunk, head, lane): cum, the chunk's total decay and its local
+//      state (x * w)^T @ B with w_j = exp(cum_L - cum_j) dt_j, written to a
+//      float32 workspace (B, H, chunks, P, N) beside the totals (B, H,
+//      chunks);
 //   2. ssd_state_scan_kernel, over (state slice, head, lane): the scan
 //      S_c = exp(total_c) S_{c-1} + local_c, elementwise in float32, which
 //      overwrites each chunk's local state with the state entering it and
 //      writes the final state;
-//   3. ssd_output_kernel, one block per (row slab, chunk, head, lane), R = 64
-//      rows (32 at L = 32): y for the slab's rows from C @ B^T, att @ x and
-//      C @ S_in^T.
+//   3. ssd_output_kernel (float32: ssd_output_f32), one block per (row
+//      slab, chunk, head, lane), R = 64 rows (32 at L = 32): y for the
+//      slab's rows from C @ B^T, att @ x and C @ S_in^T.
 // So every chunk runs at once: 96 + 24 * 8 + 192 blocks (mamba2-130m) and
 // 256 + 256 + 512 (zamba2-1.2b) at one lane of 512 steps.
 //
-// The products run as warp tiles of m16n8k16: C @ B^T, att @ x and
-// C @ S_in^T in pass 3 and (x * w)^T @ B in pass 1. In bf16 they are
-// `mma.sync` on the tensor cores with float32 accumulation; C @ B^T comes
-// out as accumulator fragments that become att in registers (the mask and
-// decay applied per element) and then the A operand of att @ x, so att never
-// touches shared memory. In float32 the same fragments are multiplied by
-// float32 FMA on the CUDA cores (the values a lane lacks come by shuffle);
-// TF32 would miss the 2e-5 gate. Three operands of the bf16 products are
-// computed values, not inputs: att (before att @ x), x * w (before the
-// chunk-state product) and S_in (before C @ S_in^T). Rounding each to bf16
-// once came within 0.9 of the 5e-2 gate on the CPU mirror and missed it
-// on the card (1 element in 460,800), so each is carried as a hi + lo pair
-// of bf16 values, hi = bf16(v) and lo = bf16(v - hi), and its product is
-// two MMAs; what is left is the rounding of y to bf16 (the CPU tests
-// mirror both). Everything else (C @ B^T, the decays, the scan, the final
-// state) is float32. C @ B^T is computed by every head's pass 3, from B and
-// C in shared memory, rather than once per (lane, chunk) into device
-// memory: a shared copy would be read back at the same bytes that staging B
-// costs.
+// bf16 (v2): the products run as warp tiles of m16n8k16: C @ B^T, att @ x
+// and C @ S_in^T in pass 3 and (x * w)^T @ B in pass 1, `mma.sync` on the
+// tensor cores with float32 accumulation; C @ B^T comes out as accumulator
+// fragments that become att in registers (the mask and decay applied per
+// element) and then the A operand of att @ x, so att never touches shared
+// memory. Three operands of the bf16 products are computed values, not
+// inputs: att (before att @ x), x * w (before the chunk-state product) and
+// S_in (before C @ S_in^T). Rounding each to bf16 once came within 0.9 of
+// the 5e-2 gate on the CPU mirror and missed it on the card (1 element in
+// 460,800), so each is carried as a hi + lo pair of bf16 values, hi =
+// bf16(v) and lo = bf16(v - hi), and its product is two MMAs; what is left
+// is the rounding of y to bf16 (the CPU tests mirror both). Everything else
+// (C @ B^T, the decays, the scan, the final state) is float32. C @ B^T is
+// computed by every head's pass 3, from B and C in shared memory, rather
+// than once per (lane, chunk) into device memory: a shared copy would be
+// read back at the same bytes that staging B costs.
 //
-// Staging: rows of x, B and C are copied into shared memory as they lie in
-// device memory, by cp.async (every copy of a block in flight at once, no
+// float32 (v3, namespace f32): tensor cores would mean TF32, which misses
+// the 2e-5 gate, so passes 1 and 3 are float32 FMA on the CUDA cores, on
+// the register micro-tiles of flash_common.cuh that K1 v4 and K1-bwd use
+// (no shuffles: multiplying the bf16 fragments by FMA would fetch each
+// operand a lane lacks by shuffle, at a quarter of the FMA rate). Pass 1
+// is the chunk's outer sum
+// (ssm_common.cuh): x·w and B rows in shared memory as they lie in device
+// memory, each thread 8 state rows by N/16 columns, summed over the keys in
+// order. Pass 3 is K1 v4's loop without the softmax: a block of 2R threads
+// owns R = min(L, 64) rows of C and walks the key tiles of B and x up to
+// its diagonal (cp.async, the next tile loading under this one's
+// products), att = C·Bᵀ on 8 x R/16 register tiles, masked and decayed in
+// registers, through shared memory into y += att·x on 8 x P/16 tiles; then
+// S_in, staged transposed as [N][P] over the walked tiles, gives
+// exp(cum)·(C·S_inᵀ) by one more product. At P 64 / N 128 / L 128 pass 3
+// holds 98.5 KB and pass 1 98 KB: two blocks (8 warps) to an SM.
+//
+// Staging (v2): rows of x, B and C are copied into shared memory as they
+// lie in device memory, by cp.async (every copy of a block in flight at once, no
 // registers); operands that the products read across rows (x in att @ x,
 // x * w and B in the chunk-state product) are loaded with ldmatrix .trans,
 // so nothing is transposed on the way in. Tiles that are converted on the
@@ -73,9 +88,13 @@
 //
 // Bound on this card: per (lane, head, chunk) 2L^2 N + 2L^2 P + 4LPN
 // operations against x and y once and B and C once per (lane, chunk): about
-// 1 GFLOP and 4 MB for one mamba2-130m layer at S = 512, so the bound is the
-// bytes (~1.3 us). The workspace (1 MB per (lane, head) of 4 chunks at
-// P = 64, N = 128) stays in the 50 MB L2 between the passes.
+// 1 GFLOP and 4 MB for one mamba2-130m layer at S = 512, so in bf16 the
+// bound is the bytes (~1.3 us). In float32, without the tensor cores, the
+// operations bound it (5.7 GFLOP at mamba2-130m's training shape, B 8,
+// ~0.08 ms at 67 TFLOP/s). The workspace (1 MB per (lane, head) of 4 chunks
+// at P = 64, N = 128) stays in the 50 MB L2 between the passes.
+#include <type_traits>
+
 #include "ssm_common.cuh"
 
 namespace repro_torch {
@@ -201,95 +220,6 @@ template <> struct Mma<__nv_bfloat16> {
         : "=f"(c[0]), "=f"(c[1]), "=f"(c[2]), "=f"(c[3])
         : "r"(a.r[0]), "r"(a.r[1]), "r"(a.r[2]), "r"(a.r[3]), "r"(b.r[0]),
           "r"(b.r[1]), "f"(c[0]), "f"(c[1]), "f"(c[2]), "f"(c[3]));
-  }
-};
-
-template <> struct Mma<float> {
-  using E = float;
-  static constexpr bool kSplit = false;   // nothing is rounded
-  // A: (g, 2t..), (g + 8, 2t..), (g, 2t + 8..), (g + 8, 2t + 8..), two each;
-  // B: rows 2t, 2t + 1, 2t + 8, 2t + 9 of column g
-  struct A { float r[8]; };
-  struct B { float r[4]; };
-
-  static __device__ __forceinline__ void ld2(const float* p, float* o) {
-    const float2 v = *reinterpret_cast<const float2*>(p);
-    o[0] = v.x;
-    o[1] = v.y;
-  }
-  static __device__ __forceinline__ A load_a(const E* s, int ld, int m0,
-                                             int k0) {
-    const int lane = threadIdx.x & 31;
-    const E* p = s + (size_t)(m0 + (lane >> 2)) * ld + k0 + 2 * (lane & 3);
-    A f;
-    ld2(p, f.r);
-    ld2(p + 8 * ld, f.r + 2);
-    ld2(p + 8, f.r + 4);
-    ld2(p + 8 * ld + 8, f.r + 6);
-    return f;
-  }
-  static __device__ __forceinline__ B load_b(const E* s, int ld, int n0,
-                                             int k0) {
-    const int lane = threadIdx.x & 31;
-    const E* p = s + (size_t)(n0 + (lane >> 2)) * ld + k0 + 2 * (lane & 3);
-    B f;
-    ld2(p, f.r);
-    ld2(p + 8, f.r + 2);
-    return f;
-  }
-  static __device__ __forceinline__ A load_a_t(const E* s, int ld, int m0,
-                                               int k0) {
-    const int lane = threadIdx.x & 31;
-    const E* p = s + (size_t)(k0 + 2 * (lane & 3)) * ld + m0 + (lane >> 2);
-    const E* q = p + 8 * ld;
-    return A{{p[0], p[ld], p[8], p[ld + 8], q[0], q[ld], q[8], q[ld + 8]}};
-  }
-  static __device__ __forceinline__ B load_b_t(const E* s, int ld, int n0,
-                                               int k0) {
-    const int lane = threadIdx.x & 31;
-    const E* p = s + (size_t)(k0 + 2 * (lane & 3)) * ld + n0 + (lane >> 2);
-    return B{{p[0], p[ld], p[8 * ld], p[9 * ld]}};
-  }
-  static __device__ __forceinline__ A from_acc(const float (&c0)[4],
-                                               const float (&c1)[4]) {
-    return A{{c0[0], c0[1], c0[2], c0[3], c1[0], c1[1], c1[2], c1[3]}};
-  }
-  // c[row][col] += sum_k a[row][k] b[k][col]: lane (g, t) gathers rows g,
-  // g + 8 of A from lanes 4g + s and columns 2t, 2t + 1 of B from lanes
-  // 8t + s and 8t + 4 + s, s = 0..3 (each holds k = 2s, 2s + 1, 2s + 8,
-  // 2s + 9).
-  static __device__ __forceinline__ void mma(float (&c)[4], const A& a,
-                                             const B& b) {
-    const int lane = threadIdx.x & 31;
-    const int g = lane >> 2;
-    const int t = lane & 3;
-#pragma unroll
-    for (int s = 0; s < 4; ++s) {
-      const int la = 4 * g + s;
-      const int lb0 = 8 * t + s;
-      const int lb1 = 8 * t + 4 + s;
-      float r0[4], r8[4], b0[4], b1[4];
-      r0[0] = __shfl_sync(kFull, a.r[0], la);
-      r0[1] = __shfl_sync(kFull, a.r[1], la);
-      r0[2] = __shfl_sync(kFull, a.r[4], la);
-      r0[3] = __shfl_sync(kFull, a.r[5], la);
-      r8[0] = __shfl_sync(kFull, a.r[2], la);
-      r8[1] = __shfl_sync(kFull, a.r[3], la);
-      r8[2] = __shfl_sync(kFull, a.r[6], la);
-      r8[3] = __shfl_sync(kFull, a.r[7], la);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        b0[e] = __shfl_sync(kFull, b.r[e], lb0);
-        b1[e] = __shfl_sync(kFull, b.r[e], lb1);
-      }
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        c[0] = fmaf(r0[e], b0[e], c[0]);
-        c[1] = fmaf(r0[e], b1[e], c[1]);
-        c[2] = fmaf(r8[e], b0[e], c[2]);
-        c[3] = fmaf(r8[e], b1[e], c[3]);
-      }
-    }
   }
 };
 
@@ -657,6 +587,180 @@ ssd_output_kernel(const T* __restrict__ x, const float* __restrict__ dt,
   }
 }
 
+// ------------------------------------------------ v3: float32
+// The float32 passes 1 and 3, float32 FMA on the register micro-tiles of
+// flash_common.cuh (no TF32: the float32 gate is 2e-5). Pass 2 is shared.
+namespace f32 {
+
+// Pass 1: the chunk's local state (x·w)ᵀ B on the outer sum of
+// ssm_common.cuh, one block per (chunk, head, lane).
+template <int P, int N, int L>
+__global__ void __launch_bounds__(Outer<P, N, L>::NT, 2)
+ssd_chunk_state_f32(const float* __restrict__ x, const float* __restrict__ dt,
+                    const float* __restrict__ A, const float* __restrict__ Bm,
+                    float* __restrict__ states, float* __restrict__ totals,
+                    int H, int S) {
+  constexpr int NT = Outer<P, N, L>::NT;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const OuterSmem m = outer_smem<P, N, L>(smem);
+  const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int nc = gridDim.x;
+  const int s0 = c * L;
+  const int valid = min(L, S - s0);
+  const size_t bh = (size_t)b * H + h;
+  tile::load_tile<L, N, N, NT>(m.sb, Bm + ((size_t)b * S + s0) * N, valid);
+  tile::cp_async_commit();
+  chunk_cumsum(dt + bh * S + s0, A[h], m.dts, m.cum, valid, L);
+  const double total = m.cum[L - 1];
+  for (int j = threadIdx.x; j < L; j += NT) {
+    m.s[j] = expf((float)(total - m.cum[j])) * m.dts[j];   // w_j
+  }
+  if (threadIdx.x == 0) totals[bh * nc + c] = (float)total;
+  __syncthreads();
+  outer_sum<P, N, L>(x + (bh * S + s0) * P, m, valid,
+                     states + (bh * nc + c) * (size_t)(P * N));
+}
+
+// Pass 3: a block owns a slab of R = min(L, 64) rows of the chunk and
+// walks the key tiles of R keys j <= its last row, K1 v4's loop without the
+// softmax: att = C·Bᵀ on an abt micro-tile (8 rows by R/16 keys a thread),
+// times exp(cum_i − cum_j)·dt_j for j <= i and 0 above the diagonal (never
+// reaching exp), through shared memory into y += att·x (abw, 8 rows by P/16
+// columns). The state term exp(cum_i)·C_i·S_inᵀ is one more abw from S_in
+// staged as [N][P] once the walk is done, into accumulators of its own (as
+// in v2, y = att·x + exp(cum)·(C·S_inᵀ)). Thread (ty, tx) owns slab rows
+// 8ty .. 8ty+7; 2R threads.
+template <int P, int N, int L>
+struct OutLayout {
+  static constexpr int R = slab_rows(L);
+  static constexpr int NT = R / 8 * tile::kTX;
+  static constexpr int LDB = N + 4;     // B tile rows, read by abt as B
+  // cum [L] float64 and dt [L]; the slab's C [R][N]; then the B tile
+  // [R][LDB], the x tile [R][P] and att [R][R], and over them, once the
+  // walk is done, S_inᵀ [N][P]
+  static constexpr size_t WALK = (size_t)R * (LDB + P + R);
+  static constexpr size_t REGION =
+      WALK > (size_t)N * P ? WALK : (size_t)N * P;
+  static constexpr size_t BYTES =
+      (size_t)L * 12 + 4 * ((size_t)R * N + REGION);
+};
+
+template <int P, int N, int L>
+__global__ void __launch_bounds__(OutLayout<P, N, L>::NT, 2)
+ssd_output_f32(const float* __restrict__ x, const float* __restrict__ dt,
+               const float* __restrict__ A, const float* __restrict__ Bm,
+               const float* __restrict__ Cm,
+               const float* __restrict__ states, float* __restrict__ y,
+               int H, int S) {
+  using Ly = OutLayout<P, N, L>;
+  constexpr int R = Ly::R, NT = Ly::NT, LDB = Ly::LDB;
+  constexpr int NJ = R / tile::kTX, CP = P / 16;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int slabs = L / R;
+  const int c = blockIdx.x / slabs;
+  const int slab = slabs - 1 - (int)blockIdx.x % slabs;   // heaviest first
+  const int r0 = slab * R;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int nc = gridDim.x / slabs;
+  const int s0 = c * L;
+  const int valid = min(L, S - s0);
+  if (r0 >= valid) return;          // a slab wholly past S stores nothing
+  double* cum = reinterpret_cast<double*>(smem);
+  float* dts = reinterpret_cast<float*>(cum + L);
+  float* sC = dts + L;              // [R][N] the slab's C
+  float* sB = sC + R * N;           // [R][LDB] a tile of B keys
+  float* sX = sB + R * LDB;         // [R][P] a tile of x keys
+  float* sS = sX + R * P;           // [R][R] att
+  float* sT = sB;                   // [N][P] S_inᵀ, once the walk is done
+  const size_t bh = (size_t)b * H + h;
+  const size_t row0 = (size_t)b * S + s0;
+  const float* xc = x + (bh * S + s0) * P;
+  const int ty = threadIdx.x / tile::kTX, tx = threadIdx.x % tile::kTX;
+  const int i0 = 8 * ty;            // the thread's first row in the slab
+
+  tile::load_tile<R, N, N, NT>(sC, Cm + (row0 + r0) * N, valid - r0);
+  tile::load_tile<R, N, LDB, NT>(sB, Bm + row0 * N, valid);
+  tile::cp_async_commit();
+  tile::load_tile<R, P, P, NT>(sX, xc, valid);
+  tile::cp_async_commit();
+  chunk_cumsum(dt + bh * S + s0, A[h], dts, cum, valid, L);
+
+  float yacc[8][CP];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+#pragma unroll
+    for (int q = 0; q < CP; ++q) yacc[i][q] = 0.f;
+  }
+  for (int t = 0; t <= slab; ++t) { // key tiles 0 .. slab
+    const int k0 = t * R;
+    const bool more = t < slab;
+    tile::cp_async_wait<1>();       // C and this B tile (x may be in flight)
+    __syncthreads();
+    float s[8][NJ];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) s[i][j] = 0.f;
+    }
+    tile::abt<8, NJ, N, N, LDB>(sC + i0 * N, sB, s);      // C_i · B_j
+    __syncthreads();                // every thread has read this B tile
+    if (more) {
+      tile::load_tile<R, N, LDB, NT>(sB, Bm + (row0 + k0 + R) * N,
+                                     valid - k0 - R);
+      tile::cp_async_commit();
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int ri = r0 + i0 + i;
+      const double ci = cum[ri];
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const int kj = k0 + tx + tile::kTX * j;
+        sS[(i0 + i) * R + tx + tile::kTX * j] =
+            kj <= ri ? s[i][j] * expf((float)(ci - cum[kj])) * dts[kj] : 0.f;
+      }
+    }
+    if (more) {
+      tile::cp_async_wait<1>();     // this x tile (the next B may be loading)
+    } else {
+      tile::cp_async_wait<0>();
+    }
+    __syncthreads();                // att and this x tile visible
+    tile::abw<8, P, R, R, P>(sS + i0 * R, sX, yacc);      // y += att · x
+    __syncthreads();                // every thread has read att and x
+    if (more) {
+      tile::load_tile<R, P, P, NT>(sX, xc + (size_t)(k0 + R) * P,
+                                   valid - k0 - R);
+      tile::cp_async_commit();
+    }
+  }
+  if (c > 0) {                      // S_in of chunk 0 is 0
+    tile::stage_t<P, N, NT>(sT, states + (bh * nc + c) * (size_t)(P * N));
+    __syncthreads();
+    float q[8][CP];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+#pragma unroll
+      for (int k = 0; k < CP; ++k) q[i][k] = 0.f;
+    }
+    tile::abw<8, P, N, N, P>(sC + i0 * N, sT, q);          // C_i · S_inᵀ
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float e = expf((float)cum[r0 + i0 + i]);
+#pragma unroll
+      for (int k = 0; k < CP; ++k) yacc[i][k] += e * q[i][k];
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int ri = r0 + i0 + i;
+    if (ri < valid) tile::store_cols<P>(y + (bh * S + s0 + ri) * P, tx,
+                                        yacc[i]);
+  }
+}
+
+}  // namespace f32
+
 // ------------------------------------------------ launch
 // The chunk-state kernel serves both chunk sizes, so its shared-memory limit
 // is raised once, to the larger chunk's need, and recorded per kernel (a
@@ -670,20 +774,31 @@ static bool raise_state_smem_limit() {
 }
 
 // passes: bit 0 chunk states, bit 1 scan, bit 2 outputs (7 for a call; a
-// single bit only for timing one pass).
+// single bit only for timing one pass). bf16 runs v2's kernels, float32
+// v3's.
 template <typename T, int P, int N, int L>
 static int launch_ssd(const void* x, const float* dt, const float* A,
                       const void* Bm, const void* Cm, void* y, float* fs,
                       float* states, float* totals, int B, int H, int S,
                       int passes, cudaStream_t stream) {
+  constexpr bool kF32 = std::is_same<T, float>::value;
   const int nc = (S + L - 1) / L;
   const T* xt = static_cast<const T*>(x);
   if (nc > 0 && (passes & 1)) {
-    const size_t smem = state_smem_bytes<T, P, N>(L);
-    auto kern = ssd_chunk_state_kernel<T, P, N>;
-    if (!raise_state_smem_limit<T, P, N>()) return (int)cudaGetLastError();
-    kern<<<dim3(nc, H, B), kTileThreads, smem, stream>>>(
-        xt, dt, A, static_cast<const T*>(Bm), states, totals, H, S, L);
+    if constexpr (kF32) {
+      constexpr size_t smem = Outer<P, N, L>::BYTES;
+      auto kern = f32::ssd_chunk_state_f32<P, N, L>;
+      static size_t allowed = 0;
+      if (!prefer_smem(kern, smem, allowed)) return (int)cudaGetLastError();
+      kern<<<dim3(nc, H, B), Outer<P, N, L>::NT, smem, stream>>>(
+          xt, dt, A, static_cast<const T*>(Bm), states, totals, H, S);
+    } else {
+      const size_t smem = state_smem_bytes<T, P, N>(L);
+      auto kern = ssd_chunk_state_kernel<T, P, N>;
+      if (!raise_state_smem_limit<T, P, N>()) return (int)cudaGetLastError();
+      kern<<<dim3(nc, H, B), kTileThreads, smem, stream>>>(
+          xt, dt, A, static_cast<const T*>(Bm), states, totals, H, S, L);
+    }
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
@@ -696,14 +811,28 @@ static int launch_ssd(const void* x, const float* dt, const float* A,
     if (err != cudaSuccess) return (int)err;
   }
   if (nc > 0 && (passes & 4)) {
-    const size_t smem = output_smem_bytes<T, P, N, L>();
-    auto kern = ssd_output_kernel<T, P, N, L>;
-    static size_t allowed = 0;
-    if (!raise_smem_limit(kern, smem, allowed)) return (int)cudaGetLastError();
-    kern<<<dim3(nc * (L / slab_rows(L)), H, B), 2 * slab_rows(L), smem,
-           stream>>>(xt, dt, A, static_cast<const T*>(Bm),
-                     static_cast<const T*>(Cm), states, static_cast<T*>(y),
-                     H, S);
+    if constexpr (kF32) {
+      using Ly = f32::OutLayout<P, N, L>;
+      auto kern = f32::ssd_output_f32<P, N, L>;
+      static size_t allowed = 0;
+      if (!prefer_smem(kern, Ly::BYTES, allowed)) {
+        return (int)cudaGetLastError();
+      }
+      kern<<<dim3(nc * (L / Ly::R), H, B), Ly::NT, Ly::BYTES, stream>>>(
+          xt, dt, A, static_cast<const T*>(Bm), static_cast<const T*>(Cm),
+          states, static_cast<T*>(y), H, S);
+    } else {
+      const size_t smem = output_smem_bytes<T, P, N, L>();
+      auto kern = ssd_output_kernel<T, P, N, L>;
+      static size_t allowed = 0;
+      if (!raise_smem_limit(kern, smem, allowed)) {
+        return (int)cudaGetLastError();
+      }
+      kern<<<dim3(nc * (L / slab_rows(L)), H, B), 2 * slab_rows(L), smem,
+             stream>>>(xt, dt, A, static_cast<const T*>(Bm),
+                       static_cast<const T*>(Cm), states,
+                       static_cast<T*>(y), H, S);
+    }
   }
   return (int)cudaGetLastError();
 }

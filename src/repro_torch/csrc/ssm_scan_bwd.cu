@@ -56,17 +56,23 @@
 // Slabs and tiles are R = min(L, 64) rows: a whole L = 128 chunk of x, dy,
 // B, C, S_in and G in float32 is 256 KB, over the 227 KB a block may have,
 // so C1 keeps its key slab's x and B and walks tiles of dy and C rows, C2
-// keeps its row slab's dy and C and walks tiles of x and B keys, and G (C1)
-// or S_in (C2) takes the tiles' place once they are done. A block's 256
-// threads form a 16 × 16 grid; thread (ty, tx) owns rows ty + 16a and
-// columns tx + 16b of each product, so the 16 threads of a half warp share
-// a row and reduce it by shuffles. Tiles sit in shared memory as float32
-// rows padded by one word, so that a half warp reading 16 rows at one
-// column hits 16 banks. Inputs are float32 or bfloat16 (loaded and
-// converted); all arithmetic is float32 FMA on the CUDA cores (TF32 would
-// miss the float32 gate), and the gradients are written in the inputs'
-// types (d(dt) and dA float32). Rows past S load as zeros with dt = 0 and
-// their gradients are never stored.
+// keeps its row slab's dy and C and walks tiles of x and B keys, and G and
+// Gᵀ (C1) or S_in and S_inᵀ (C2) take the tiles' place once they are done.
+// v2 runs every product on the register micro-tiles of flash_common.cuh
+// that K1-bwd uses: a block of 2R threads, thread (ty, tx) owning slab rows
+// 8ty .. 8ty+7 and, in each R x R score tile, the columns tx + 16q, so the
+// 16 threads of a half warp share a row and reduce it by shuffles after
+// the products. Scores come from abt (8 x R/16 a thread), the sums over a
+// tile from abw (8 x P/16 or N/16), the state's products from abw on the
+// state or its transpose, and A from the outer sum of ssm_common.cuh, all
+// from 16-byte shared loads; the walked tiles arrive by cp.async, each
+// refilled as soon as its last product has read it. At P 64 / N 128 /
+// L 128, C1 and C2 hold 115,712 bytes: two blocks (8 warps) to an SM.
+// Inputs are float32 or bfloat16 (converted to float32 on the way in);
+// all arithmetic is float32 FMA on the CUDA cores (TF32 would miss the
+// float32 gate), and the gradients are written in the inputs' types (d(dt)
+// and dA float32). Rows past S load as zeros with dt = 0 and their
+// gradients are never stored.
 //
 // Bound on this card: per (lane, head, chunk) five products over the
 // causal pairs (C·Bᵀ, dY·Xᵀ, dx, dB and dC: 2·pairs·(3N + 2P)) and five
@@ -74,15 +80,18 @@
 // 10 L P N), against x, dy, dx, the workspace's S_in (each B·H·S·P) and B,
 // C, dB, dC once: at mamba2-130m's training shape (B 8, S 512, H 24,
 // P 64, N 128, L 128) ≈ 14.5 GFLOP against ≈ 0.11 GB a layer, so the
-// float32 operations bound it (≈ 0.22 ms at 67 TFLOP/s). This first design
-// recomputes C·Bᵀ and dY·Xᵀ in C1 and C2 and feeds FMA from shared memory
-// (two loads per FMA pair), so it sits well above that bound.
+// float32 operations bound it (≈ 0.22 ms at 67 TFLOP/s). C1 forms C·Bᵀ and
+// dY·Xᵀ and C2 dY·Xᵀ again (six products over the pairs where the bound
+// counts five), over whole R x R tiles on the diagonal. M's sums need no
+// product of their own: its row sum is C_i · Σ_j D_ij B_j (C2's dC term
+// before S_in's), its column sum dt_j times B_j · Σ_i u_ji C_i (C1's dB
+// term before dt_j and G's).
 #include "ssm_common.cuh"
 
 namespace repro_torch {
 namespace ssd_bwd {
 
-constexpr int kT = 256;       // threads of a block: 16 x 16
+constexpr int kT = 256;       // threads of C3's and R's blocks
 constexpr int kScan = 256;    // threads of the reverse scan's block
 
 template <int RA, int CB>
@@ -94,158 +103,35 @@ __device__ __forceinline__ void zero(float (&acc)[RA][CB]) {
   }
 }
 
-// Sum over the 16 threads of a half warp (one row of a product).
-__device__ __forceinline__ float row_sum(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
-  return v;
-}
 __device__ __forceinline__ double warp_sum_d(double v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
   return v;
 }
 
-// dst[r][0, W) (row stride W + 1, float) <- row r0 + r of the row-major
-// (., W) array at src, times scale[r0 + r] when scale is given, for
-// r < rows; rows at or past `valid` are zeros. 16-byte loads.
-template <typename T, int W>
-__device__ void load_tile(float* __restrict__ dst, const T* __restrict__ src,
-                          int r0, int valid, int rows,
-                          const float* __restrict__ scale) {
-  constexpr int V = vec_len<T>();
-  constexpr int CPR = W / V;
-  for (int c = threadIdx.x; c < rows * CPR; c += blockDim.x) {
-    const int r = c / CPR;
-    const int d0 = (c - r * CPR) * V;
-    float f[V];
-    if (r0 + r < valid) {
-      load16(src + (size_t)(r0 + r) * W + d0, f);
-      if (scale != nullptr) {
-        const float s = scale[r0 + r];
-#pragma unroll
-        for (int i = 0; i < V; ++i) f[i] *= s;
-      }
-    } else {
-#pragma unroll
-      for (int i = 0; i < V; ++i) f[i] = 0.f;
-    }
-#pragma unroll
-    for (int i = 0; i < V; ++i) dst[r * (W + 1) + d0 + i] = f[i];
-  }
-}
-
-// acc[a][b] += Σ_k A[ty + 16a][k] · B[tx + 16b][k]   (A·Bᵀ)
-template <int RA, int CB, int K>
-__device__ __forceinline__ void mm_abt(const float* __restrict__ A, int lda,
-                                       const float* __restrict__ B, int ldb,
-                                       float (&acc)[RA][CB]) {
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-#pragma unroll 4
-  for (int k = 0; k < K; ++k) {
-    float av[RA], bv[CB];
-#pragma unroll
-    for (int a = 0; a < RA; ++a) av[a] = A[(ty + 16 * a) * lda + k];
-#pragma unroll
-    for (int b = 0; b < CB; ++b) bv[b] = B[(tx + 16 * b) * ldb + k];
-#pragma unroll
-    for (int a = 0; a < RA; ++a) {
-#pragma unroll
-      for (int b = 0; b < CB; ++b) acc[a][b] = fmaf(av[a], bv[b], acc[a][b]);
-    }
-  }
-}
-
-// acc[a][b] += Σ_k A[ty + 16a][k] · B[k][tx + 16b]   (A·B)
-template <int RA, int CB, int K>
-__device__ __forceinline__ void mm_ab(const float* __restrict__ A, int lda,
-                                      const float* __restrict__ B, int ldb,
-                                      float (&acc)[RA][CB]) {
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-#pragma unroll 4
-  for (int k = 0; k < K; ++k) {
-    float av[RA], bv[CB];
-#pragma unroll
-    for (int a = 0; a < RA; ++a) av[a] = A[(ty + 16 * a) * lda + k];
-#pragma unroll
-    for (int b = 0; b < CB; ++b) bv[b] = B[k * ldb + tx + 16 * b];
-#pragma unroll
-    for (int a = 0; a < RA; ++a) {
-#pragma unroll
-      for (int b = 0; b < CB; ++b) acc[a][b] = fmaf(av[a], bv[b], acc[a][b]);
-    }
-  }
-}
-
-// acc[a][b] += Σ_k A[k][ty + 16a] · B[k][tx + 16b]   (Aᵀ·B)
-template <int RA, int CB, int K>
-__device__ __forceinline__ void mm_atb(const float* __restrict__ A, int lda,
-                                       const float* __restrict__ B, int ldb,
-                                       float (&acc)[RA][CB]) {
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-#pragma unroll 4
-  for (int k = 0; k < K; ++k) {
-    float av[RA], bv[CB];
-#pragma unroll
-    for (int a = 0; a < RA; ++a) av[a] = A[k * lda + ty + 16 * a];
-#pragma unroll
-    for (int b = 0; b < CB; ++b) bv[b] = B[k * ldb + tx + 16 * b];
-#pragma unroll
-    for (int a = 0; a < RA; ++a) {
-#pragma unroll
-      for (int b = 0; b < CB; ++b) acc[a][b] = fmaf(av[a], bv[b], acc[a][b]);
-    }
-  }
-}
-
 // ------------------------------------------------ A: each chunk's dY·Cᵀ
-template <int P, int N, int L>
-__host__ __device__ constexpr size_t dstate_smem() {
-  return (size_t)L * 16 +
-         4 * (size_t)slab_rows(L) * ((P + 1) + (N + 1));
-}
-
-// Thread (ty, tx) owns state rows p = ty + 16a and columns n = tx + 16b.
+// Σ_i exp(cum_i) dy_i C_iᵀ on the outer sum of ssm_common.cuh (K5's float32
+// chunk-state pass with dy for x and exp(cum) for w).
 template <typename T, int P, int N, int L>
-__global__ void __launch_bounds__(kT)
+__global__ void __launch_bounds__(Outer<P, N, L>::NT, 2)
 ssd_bwd_dstate_kernel(const T* __restrict__ dy, const float* __restrict__ dt,
                       const float* __restrict__ A, const T* __restrict__ Cm,
                       float* __restrict__ dstates, int H, int S) {
-  constexpr int TI = slab_rows(L);
-  constexpr int LP = P + 1, LN = N + 1;
+  constexpr int NT = Outer<P, N, L>::NT;
   extern __shared__ __align__(16) unsigned char smem[];
+  const OuterSmem m = outer_smem<P, N, L>(smem);
   const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int nc = gridDim.x;
   const int s0 = c * L;
   const int valid = min(L, S - s0);
-  double* cum = reinterpret_cast<double*>(smem);
-  float* dts = reinterpret_cast<float*>(cum + L);
-  float* ecum = dts + L;
-  float* dys = ecum + L;            // [TI][LP], rows scaled by exp(cum)
-  float* cs = dys + TI * LP;        // [TI][LN]
   const size_t bh = (size_t)b * H + h;
-  chunk_cumsum(dt + bh * S + s0, A[h], dts, cum, valid, L);
-  for (int i = threadIdx.x; i < L; i += kT) ecum[i] = expf((float)cum[i]);
-  float acc[P / 16][N / 16];
-  zero(acc);
-  const T* dyc = dy + (bh * S + s0) * P;
-  const T* cc = Cm + ((size_t)b * S + s0) * N;
-  for (int i0 = 0; i0 < valid; i0 += TI) {
-    __syncthreads();   // ecum written; the previous tile consumed
-    load_tile<T, P>(dys, dyc, i0, valid, TI, ecum);
-    load_tile<T, N>(cs, cc, i0, valid, TI, nullptr);
-    __syncthreads();
-    mm_atb<P / 16, N / 16, TI>(dys, LP, cs, LN, acc);
-  }
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  float* o = dstates + (bh * nc + c) * (size_t)(P * N);
-#pragma unroll
-  for (int a = 0; a < P / 16; ++a) {
-#pragma unroll
-    for (int bb = 0; bb < N / 16; ++bb) {
-      o[(size_t)(ty + 16 * a) * N + tx + 16 * bb] = acc[a][bb];
-    }
-  }
+  tile::load_tile<L, N, N, NT>(m.sb, Cm + ((size_t)b * S + s0) * N, valid);
+  tile::cp_async_commit();
+  chunk_cumsum(dt + bh * S + s0, A[h], m.dts, m.cum, valid, L);
+  for (int i = threadIdx.x; i < L; i += NT) m.s[i] = expf((float)m.cum[i]);
+  __syncthreads();
+  outer_sum<P, N, L>(dy + (bh * S + s0) * P, m, valid,
+                     dstates + (bh * nc + c) * (size_t)(P * N));
 }
 
 // ------------------------------------------------ B: the reverse scan
@@ -276,159 +162,200 @@ ssd_bwd_state_scan_kernel(float* __restrict__ dstates,
 }
 
 // ------------------------------------------------ C1, C2: slabs
-// Shared memory of C1 and C2: cum [L] float64 and dt [L], then float32
-// tiles: the slab's two operands (R rows of P and of N), one (C2) or two
-// (C1) R × R score tiles, and the walked tiles (R rows of P and of N) or,
-// once they are done, the (P, N) state over them.
-template <int P, int N, int L, int SCORE_TILES>
-__host__ __device__ constexpr size_t slab_smem() {
-  constexpr size_t R = slab_rows(L);
-  constexpr size_t tiles = R * ((P + 1) + (N + 1));
-  constexpr size_t state = (size_t)P * (N + 1);
-  return (size_t)L * 12 +
-         4 * (tiles + SCORE_TILES * R * (R + 1) +
-              (tiles > state ? tiles : state));
-}
+// Thread (ty, tx) owns slab rows 8ty .. 8ty+7 (keys in C1, rows in C2) of
+// every product, and in each score tile the columns tx + 16q (abt); 2R
+// threads. The slab's two operands sit in shared memory as they lie in
+// device memory (abt and abw read them as A); the walked tiles are
+// swizzled (abt and abw read them as B); the score tile is [R][R]. Once the
+// walk is done the state (G or S_in) and its transpose take the walked
+// tiles' place. At P 64 / N 128 / L 128 that is 115,712 bytes, two blocks
+// to an SM to the byte, which is why the walked tiles are swizzled rather
+// than padded and dt is read where it is needed rather than kept.
+template <int P, int N, int L>
+struct Slab {
+  static constexpr int R = slab_rows(L);
+  static constexpr int NT = R / 8 * tile::kTX;
+  static constexpr int NJ = R / tile::kTX;     // score columns a thread
+  static constexpr size_t WALK = (size_t)R * (P + N + R);
+  static constexpr size_t POST = 2 * (size_t)P * N;
+  static constexpr size_t REGION = WALK > POST ? WALK : POST;
+  // cum [L] float64, the slab's operands [R][P] and [R][N], the region
+  static constexpr size_t BYTES =
+      (size_t)L * 8 + 4 * ((size_t)R * (P + N) + REGION);
+};
 
 // Per-step terms of the scratch `steps` (4, B, H, S).
 enum Step { kColPart = 0, kWr = 1, kDirect = 2, kRowPart = 3 };
 
-// C1. Thread (ty, tx) owns keys j = j0 + ty + 16a of the slab and, in each
-// score tile, rows i = i0 + tx + 16b; scores are kept as [j][i].
+// C1: the key slab j0 .. j0+R-1 against the tiles of rows i0 >= j0; scores
+// are kept as [j][i]. Per tile, u = (x_j·dy_i) E_ij goes through the score
+// tile into Σ_i u_ji C_i and then v = (B_j·C_i) E_ij into Σ_i v_ji dy_i, so
+// only one score tile is ever live in registers; dt_j scales both sums
+// once the walk is done, and the direct term of d(dt), Σ_i (dy_i·x_j)
+// (C_i·B_j) E_ij, is B_j · Σ_i u_ji C_i: no third pass over the scores.
 template <typename T, int P, int N, int L>
-__global__ void __launch_bounds__(kT, 1)
+__global__ void __launch_bounds__(Slab<P, N, L>::NT, 2)
 ssd_bwd_keys_kernel(const T* __restrict__ x, const float* __restrict__ dt,
                     const float* __restrict__ A, const T* __restrict__ Bm,
                     const T* __restrict__ Cm, const T* __restrict__ dy,
                     const float* __restrict__ dstates, T* __restrict__ dx,
                     float* __restrict__ dB_part, float* __restrict__ steps,
                     int H, int S) {
-  constexpr int R = slab_rows(L);
-  constexpr int RA = R / 16, RB = R / 16;
-  constexpr int LP = P + 1, LN = N + 1, LR = R + 1;
+  using Sl = Slab<P, N, L>;
+  constexpr int R = Sl::R, NT = Sl::NT, NJ = Sl::NJ;
+  constexpr int CP = P / 16, CN = N / 16;
   extern __shared__ __align__(16) unsigned char smem[];
   const int slabs = L / R;
   const int c = blockIdx.x / slabs;
-  const int j0 = (blockIdx.x % slabs) * R;
+  const int j0 = (blockIdx.x % slabs) * R;   // slab 0 walks the most: first
   const int h = blockIdx.y, b = blockIdx.z;
   const int nc = gridDim.x / slabs;
   const int s0 = c * L;
   const int valid = min(L, S - s0);
   if (j0 >= valid) return;          // a slab wholly past S keeps nothing
   double* cum = reinterpret_cast<double*>(smem);
-  float* dts = reinterpret_cast<float*>(cum + L);
-  float* xs = dts + L;              // [R][LP] the slab's x
-  float* bs = xs + R * LP;          // [R][LN] the slab's B
-  float* atts = bs + R * LN;        // [R][LR] att, [j][i]
-  float* dss = atts + R * LR;       // [R][LR] (dy·x) E dt, [j][i]
-  float* dys = dss + R * LR;        // [R][LP] a tile of dy rows
-  float* cs = dys + R * LP;         // [R][LN] a tile of C rows
-  float* gs = dys;                  // [P][LN] G, once the tiles are done
+  float* xs = reinterpret_cast<float*>(cum + L);   // [R][P] the slab's x
+  float* bs = xs + R * P;           // [R][N] the slab's B
+  float* dys = bs + R * N;          // [R][P] swizzled: a tile of dy rows
+  float* cs = dys + R * P;          // [R][N] swizzled: a tile of C rows
+  float* ss = cs + R * N;           // [R][R] u, then v
+  float* gs = dys;                  // [P][N] G, once the walk is done
+  float* gts = gs + P * N;          // [N][P] Gᵀ
   const size_t bh = (size_t)b * H + h;
   const size_t xrow0 = bh * S + s0;            // x, dy, dB_part, steps
   const size_t brow0 = (size_t)b * S + s0;     // B, C
-  chunk_cumsum(dt + bh * S + s0, A[h], dts, cum, valid, L);
-  load_tile<T, P>(xs, x + xrow0 * P, j0, valid, R, nullptr);
-  load_tile<T, N>(bs, Bm + brow0 * N, j0, valid, R, nullptr);
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  float acc_dx[RA][P / 16], acc_db[RA][N / 16];
+  const float* dtc = dt + bh * S + s0;
+  const int ty = threadIdx.x / tile::kTX, tx = threadIdx.x % tile::kTX;
+  const int jr = 8 * ty;            // the thread's first key in the slab
+  tile::load_tile<R, P, P, NT>(xs, x + (xrow0 + j0) * P, valid - j0);
+  tile::load_tile<R, N, N, NT>(bs, Bm + (brow0 + j0) * N, valid - j0);
+  tile::load_tile_sw<R, P, NT>(dys, dy + (xrow0 + j0) * P, valid - j0);
+  tile::cp_async_commit();
+  tile::load_tile_sw<R, N, NT>(cs, Cm + (brow0 + j0) * N, valid - j0);
+  tile::cp_async_commit();
+  chunk_cumsum(dtc, A[h], ss, cum, valid, L);   // dt's scratch: the score tile
+
+  // Σ_i v_ji dy_i and Σ_i u_ji C_i, dt_j not yet applied
+  float acc_dx[8][CP], acc_db[8][CN];
   zero(acc_dx);
   zero(acc_db);
-  float colm[RA], direct[RA];
-#pragma unroll
-  for (int a = 0; a < RA; ++a) colm[a] = direct[a] = 0.f;
-  for (int i0 = j0; i0 < valid; i0 += R) {
-    __syncthreads();   // the slab visible; the previous tile consumed
-    load_tile<T, P>(dys, dy + xrow0 * P, i0, valid, R, nullptr);
-    load_tile<T, N>(cs, Cm + brow0 * N, i0, valid, R, nullptr);
+  const int n_tiles = (valid - j0 + R - 1) / R;
+  for (int t = 0; t < n_tiles; ++t) {
+    const int i0 = j0 + t * R;
+    const bool more = t + 1 < n_tiles;
+    if (t == 0) {
+      tile::cp_async_wait<1>();     // the slab and this dy tile
+    } else {
+      tile::cp_async_wait<0>();     // this dy tile (and C's, loaded before)
+    }
     __syncthreads();
-    float cb[RA][RB], dyx[RA][RB];
-    zero(cb);
-    zero(dyx);
-    mm_abt<RA, RB, N>(bs, LN, cs, LN, cb);      // B_j · C_i
-    mm_abt<RA, RB, P>(xs, LP, dys, LP, dyx);    // x_j · dy_i
+    float sc[8][NJ];
+    zero(sc);
+    tile::abt<8, NJ, P, P, P, true>(xs + jr * P, dys, sc);    // x_j · dy_i
 #pragma unroll
-    for (int a = 0; a < RA; ++a) {
-      const int jl = ty + 16 * a;
+    for (int a = 0; a < 8; ++a) {
+      const int jl = jr + a;
       const double cj = cum[j0 + jl];
-      const float dtj = dts[j0 + jl];
 #pragma unroll
-      for (int bb = 0; bb < RB; ++bb) {
-        const int il = tx + 16 * bb;
-        float att = 0.f, dv = 0.f;
-        if (j0 + jl <= i0 + il) {
-          const float e = expf((float)(cum[i0 + il] - cj));
-          const float ce = cb[a][bb] * e;
-          att = ce * dtj;
-          dv = dyx[a][bb] * e * dtj;
-          colm[a] = fmaf(dyx[a][bb], att, colm[a]);
-          direct[a] = fmaf(dyx[a][bb], ce, direct[a]);
-        }
-        atts[jl * LR + il] = att;
-        dss[jl * LR + il] = dv;
+      for (int q = 0; q < NJ; ++q) {
+        const int il = tx + tile::kTX * q;
+        ss[jl * R + il] = j0 + jl <= i0 + il
+            ? sc[a][q] * expf((float)(cum[i0 + il] - cj)) : 0.f;   // u
       }
     }
-    __syncthreads();
-    mm_ab<RA, P / 16, R>(atts, LR, dys, LP, acc_dx);   // Σ_i att_ij dy_i
-    mm_ab<RA, N / 16, R>(dss, LR, cs, LN, acc_db);     // Σ_i D_ij C_i
+    tile::cp_async_wait<0>();       // this C tile
+    __syncthreads();                // u visible
+    tile::abw<8, N, R, R, N, true>(ss + jr * R, cs, acc_db);   // Σ u_ji C_i
+    __syncthreads();                // every thread has read u
+    zero(sc);
+    tile::abt<8, NJ, N, N, N, true>(bs + jr * N, cs, sc);     // B_j · C_i
+#pragma unroll
+    for (int a = 0; a < 8; ++a) {
+      const int jl = jr + a;
+      const double cj = cum[j0 + jl];
+#pragma unroll
+      for (int q = 0; q < NJ; ++q) {
+        const int il = tx + tile::kTX * q;
+        ss[jl * R + il] = j0 + jl <= i0 + il
+            ? sc[a][q] * expf((float)(cum[i0 + il] - cj)) : 0.f;   // v
+      }
+    }
+    __syncthreads();                // v visible; every thread has read C
+    if (more) {
+      tile::load_tile_sw<R, N, NT>(cs, Cm + (brow0 + i0 + R) * N,
+                                   valid - i0 - R);
+      tile::cp_async_commit();
+    }
+    tile::abw<8, P, R, R, P, true>(ss + jr * R, dys, acc_dx);  // Σ v_ji dy_i
+    __syncthreads();                // every thread has read v and dy
+    if (more) {
+      tile::load_tile_sw<R, P, NT>(dys, dy + (xrow0 + i0 + R) * P,
+                                   valid - i0 - R);
+      tile::cp_async_commit();
+    }
   }
-  __syncthreads();     // the last tile consumed: G goes over it
-  load_tile<float, N>(gs, dstates + (bh * nc + c) * (size_t)(P * N), 0, P, P,
-                      nullptr);
-  __syncthreads();
+  // G and Gᵀ over the walked tiles (the walk ended on a barrier)
+  const float* gc = dstates + (bh * nc + c) * (size_t)(P * N);
+  tile::load_tile<P, N, N, NT>(gs, gc, P);
+  tile::cp_async_commit();
+  tile::stage_t<P, N, NT>(gts, gc);
   const double T_ = cum[L - 1];
-  float wj[RA], r[RA];
+  float dtj[8], wj[8], direct[8], r[8];
 #pragma unroll
-  for (int a = 0; a < RA; ++a) {
-    const int j = j0 + ty + 16 * a;
-    wj[a] = expf((float)(T_ - cum[j])) * dts[j];
-    r[a] = 0.f;
+  for (int a = 0; a < 8; ++a) {
+    const int j = j0 + jr + a;
+    dtj[a] = j < valid ? dtc[j] : 0.f;
+    wj[a] = expf((float)(T_ - cum[j])) * dtj[a];
+    direct[a] = r[a] = 0.f;
+#pragma unroll
+    for (int q = 0; q < CN; ++q) {  // B_j · Σ_i u_ji C_i, then dt_j
+      direct[a] = fmaf(bs[(jr + a) * N + tile::col<N>(tx, q)], acc_db[a][q],
+                       direct[a]);
+      acc_db[a][q] *= dtj[a];
+    }
+#pragma unroll
+    for (int q = 0; q < CP; ++q) acc_dx[a][q] *= dtj[a];
   }
+  tile::cp_async_wait<0>();
+  __syncthreads();
   {
-    float gb[RA][P / 16];                   // (G B_j)_p
+    float gb[8][CP];                // (G B_j)_p
     zero(gb);
-    mm_abt<RA, P / 16, N>(bs, LN, gs, LN, gb);
+    tile::abw<8, P, N, N, P>(bs + jr * N, gts, gb);
 #pragma unroll
-    for (int a = 0; a < RA; ++a) {
+    for (int a = 0; a < 8; ++a) {
 #pragma unroll
-      for (int bb = 0; bb < P / 16; ++bb) {
-        r[a] = fmaf(xs[(ty + 16 * a) * LP + tx + 16 * bb], gb[a][bb], r[a]);
-        acc_dx[a][bb] = fmaf(wj[a], gb[a][bb], acc_dx[a][bb]);
+      for (int q = 0; q < CP; ++q) {
+        r[a] = fmaf(xs[(jr + a) * P + tile::col<P>(tx, q)], gb[a][q], r[a]);
+        acc_dx[a][q] = fmaf(wj[a], gb[a][q], acc_dx[a][q]);
       }
     }
   }
-  {
-    float gx[RA][N / 16];                   // (Gᵀ x_j)_n
-    zero(gx);
-    mm_ab<RA, N / 16, P>(xs, LP, gs, LN, gx);
+  __syncthreads();                  // every thread has read x for r
+  // x_j ← w_j x_j in place (each element by the thread that owns its
+  // column), then dB_j += Gᵀ (w_j x_j) into the same accumulators
 #pragma unroll
-    for (int a = 0; a < RA; ++a) {
+  for (int a = 0; a < 8; ++a) {
 #pragma unroll
-      for (int bb = 0; bb < N / 16; ++bb) {
-        acc_db[a][bb] = fmaf(wj[a], gx[a][bb], acc_db[a][bb]);
-      }
+    for (int q = 0; q < CP; ++q) {
+      xs[(jr + a) * P + tile::col<P>(tx, q)] *= wj[a];
     }
   }
+  __syncthreads();
+  tile::abw<8, N, P, P, N>(xs + jr * P, gs, acc_db);
   const size_t bhs = (size_t)gridDim.z * H * S;
 #pragma unroll
-  for (int a = 0; a < RA; ++a) {
-    const float cm = row_sum(colm[a]);
-    const float dr = row_sum(direct[a]);
-    const float rr = row_sum(r[a]);
-    const int j = j0 + ty + 16 * a;
+  for (int a = 0; a < 8; ++a) {
+    const float dr = tile::row_sum16(direct[a]);
+    const float rr = tile::row_sum16(r[a]);
+    const int j = j0 + jr + a;
     if (j < valid) {
       const size_t at = xrow0 + j;
-#pragma unroll
-      for (int bb = 0; bb < P / 16; ++bb) {
-        dx[at * P + tx + 16 * bb] = from_f32<T>(acc_dx[a][bb]);
-      }
-#pragma unroll
-      for (int bb = 0; bb < N / 16; ++bb) {
-        dB_part[at * N + tx + 16 * bb] = acc_db[a][bb];
-      }
+      tile::store_cols<P>(dx + at * P, tx, acc_dx[a]);
+      tile::store_cols<N>(dB_part + at * N, tx, acc_db[a]);
       if (tx == 0) {
         const float wr = wj[a] * rr;
-        steps[kColPart * bhs + at] = -cm - wr;
+        steps[kColPart * bhs + at] = -dtj[a] * dr - wr;
         steps[kWr * bhs + at] = wr;
         steps[kDirect * bhs + at] = dr + expf((float)(T_ - cum[j])) * rr;
       }
@@ -436,124 +363,152 @@ ssd_bwd_keys_kernel(const T* __restrict__ x, const float* __restrict__ dt,
   }
 }
 
-// C2. Thread (ty, tx) owns rows i = i0 + ty + 16a of the slab and, in each
-// score tile, keys j = j0 + tx + 16b; scores are kept as [i][j].
+// C2: the row slab i0 .. i0+R-1 against the tiles of keys j0 <= i0;
+// scores are kept as [i][j]. D = (dy_i·x_j) E_ij dt_j goes through the
+// score tile into Σ_j D_ij B_j; the row sum of M, Σ_j D_ij (C_i·B_j), is
+// C_i · Σ_j D_ij B_j, so C2 forms no C·Bᵀ.
 template <typename T, int P, int N, int L>
-__global__ void __launch_bounds__(kT, 1)
+__global__ void __launch_bounds__(Slab<P, N, L>::NT, 2)
 ssd_bwd_rows_kernel(const T* __restrict__ x, const float* __restrict__ dt,
                     const float* __restrict__ A, const T* __restrict__ Bm,
                     const T* __restrict__ Cm, const T* __restrict__ dy,
                     const float* __restrict__ states,
                     float* __restrict__ dC_part, float* __restrict__ steps,
                     int H, int S) {
-  constexpr int R = slab_rows(L);
-  constexpr int RA = R / 16, RB = R / 16;
-  constexpr int LP = P + 1, LN = N + 1, LR = R + 1;
+  using Sl = Slab<P, N, L>;
+  constexpr int R = Sl::R, NT = Sl::NT, NJ = Sl::NJ;
+  constexpr int CP = P / 16, CN = N / 16;
   extern __shared__ __align__(16) unsigned char smem[];
   const int slabs = L / R;
   const int c = blockIdx.x / slabs;
-  const int i0 = (blockIdx.x % slabs) * R;
+  const int slab = slabs - 1 - (int)blockIdx.x % slabs;   // longest first
+  const int i0 = slab * R;
   const int h = blockIdx.y, b = blockIdx.z;
   const int nc = gridDim.x / slabs;
   const int s0 = c * L;
   const int valid = min(L, S - s0);
   if (i0 >= valid) return;          // a slab wholly past S keeps nothing
   double* cum = reinterpret_cast<double*>(smem);
-  float* dts = reinterpret_cast<float*>(cum + L);
-  float* dys = dts + L;             // [R][LP] the slab's dy
-  float* cs = dys + R * LP;         // [R][LN] the slab's C
-  float* dss = cs + R * LN;         // [R][LR] (dy·x) E dt, [i][j]
-  float* xs = dss + R * LR;         // [R][LP] a tile of x keys
-  float* bs = xs + R * LP;          // [R][LN] a tile of B keys
-  float* s_in = xs;                 // [P][LN] S_in, once the tiles are done
+  float* dys = reinterpret_cast<float*>(cum + L);  // [R][P] the slab's dy
+  float* cs = dys + R * P;          // [R][N] the slab's C
+  float* xs = cs + R * N;           // [R][P] swizzled: a tile of x keys
+  float* bs = xs + R * P;           // [R][N] swizzled: a tile of B keys
+  float* ss = bs + R * N;           // [R][R] D
+  float* sin_ = xs;                 // [P][N] S_in, once the walk is done
+  float* sint = sin_ + P * N;       // [N][P] S_inᵀ
   const size_t bh = (size_t)b * H + h;
   const size_t xrow0 = bh * S + s0;
   const size_t brow0 = (size_t)b * S + s0;
-  chunk_cumsum(dt + bh * S + s0, A[h], dts, cum, valid, L);
-  load_tile<T, P>(dys, dy + xrow0 * P, i0, valid, R, nullptr);
-  load_tile<T, N>(cs, Cm + brow0 * N, i0, valid, R, nullptr);
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  float acc_dc[RA][N / 16];
+  const float* dtc = dt + bh * S + s0;
+  const int ty = threadIdx.x / tile::kTX, tx = threadIdx.x % tile::kTX;
+  const int ir = 8 * ty;            // the thread's first row in the slab
+  tile::load_tile<R, P, P, NT>(dys, dy + (xrow0 + i0) * P, valid - i0);
+  tile::load_tile<R, N, N, NT>(cs, Cm + (brow0 + i0) * N, valid - i0);
+  tile::load_tile_sw<R, P, NT>(xs, x + xrow0 * P, valid);
+  tile::cp_async_commit();
+  tile::load_tile_sw<R, N, NT>(bs, Bm + brow0 * N, valid);
+  tile::cp_async_commit();
+  chunk_cumsum(dtc, A[h], ss, cum, valid, L);   // dt's scratch: the score tile
+
+  float acc_dc[8][CN];
   zero(acc_dc);
-  float rowm[RA], ein[RA];
+  for (int t = 0; t <= slab; ++t) { // key tiles 0 .. slab
+    const int j0 = t * R;
+    const bool more = t < slab;
+    float dtk[NJ];                  // dt of the thread's keys, 0 past S
 #pragma unroll
-  for (int a = 0; a < RA; ++a) rowm[a] = ein[a] = 0.f;
-  for (int j0 = 0; j0 <= i0; j0 += R) {
-    __syncthreads();   // the slab visible; the previous tile consumed
-    load_tile<T, P>(xs, x + xrow0 * P, j0, valid, R, nullptr);
-    load_tile<T, N>(bs, Bm + brow0 * N, j0, valid, R, nullptr);
+    for (int q = 0; q < NJ; ++q) {
+      const int j = j0 + tx + tile::kTX * q;
+      dtk[q] = j < valid ? dtc[j] : 0.f;
+    }
+    tile::cp_async_wait<1>();       // the slab and this x tile
     __syncthreads();
-    float dyx[RA][RB], cb[RA][RB];
-    zero(dyx);
-    zero(cb);
-    mm_abt<RA, RB, P>(dys, LP, xs, LP, dyx);    // dy_i · x_j
-    mm_abt<RA, RB, N>(cs, LN, bs, LN, cb);      // C_i · B_j
+    float sc[8][NJ];
+    zero(sc);
+    tile::abt<8, NJ, P, P, P, true>(dys + ir * P, xs, sc);    // dy_i · x_j
 #pragma unroll
-    for (int a = 0; a < RA; ++a) {
-      const int il = ty + 16 * a;
+    for (int a = 0; a < 8; ++a) {
+      const int il = ir + a;
       const double ci = cum[i0 + il];
 #pragma unroll
-      for (int bb = 0; bb < RB; ++bb) {
-        const int jl = tx + 16 * bb;
-        float dv = 0.f;
-        if (j0 + jl <= i0 + il) {
-          const float e = expf((float)(ci - cum[j0 + jl]));
-          dv = dyx[a][bb] * e * dts[j0 + jl];
-          rowm[a] = fmaf(dv, cb[a][bb], rowm[a]);
-        }
-        dss[il * LR + jl] = dv;
+      for (int q = 0; q < NJ; ++q) {
+        const int jl = tx + tile::kTX * q;
+        ss[il * R + jl] = j0 + jl <= i0 + il
+            ? sc[a][q] * expf((float)(ci - cum[j0 + jl])) * dtk[q] : 0.f;
       }
     }
-    __syncthreads();
-    mm_ab<RA, N / 16, R>(dss, LR, bs, LN, acc_dc);     // Σ_j D_ij B_j
+    tile::cp_async_wait<0>();       // this B tile
+    __syncthreads();                // D visible; every thread has read x
+    if (more) {
+      tile::load_tile_sw<R, P, NT>(xs, x + (xrow0 + j0 + R) * P,
+                                   valid - j0 - R);
+      tile::cp_async_commit();
+    }
+    tile::abw<8, N, R, R, N, true>(ss + ir * R, bs, acc_dc);   // Σ D_ij B_j
+    __syncthreads();                // every thread has read D and B
+    if (more) {
+      tile::load_tile_sw<R, N, NT>(bs, Bm + (brow0 + j0 + R) * N,
+                                   valid - j0 - R);
+      tile::cp_async_commit();
+    }
+  }
+  float rowm[8], ein[8];            // C_i · Σ_j D_ij B_j; the S_in term
+#pragma unroll
+  for (int a = 0; a < 8; ++a) {
+    rowm[a] = ein[a] = 0.f;
+#pragma unroll
+    for (int q = 0; q < CN; ++q) {
+      rowm[a] = fmaf(cs[(ir + a) * N + tile::col<N>(tx, q)], acc_dc[a][q],
+                     rowm[a]);
+    }
   }
   if (c > 0) {                      // S_in of chunk 0 is 0
-    __syncthreads();   // the last tile consumed: S_in goes over it
-    load_tile<float, N>(s_in, states + (bh * nc + c) * (size_t)(P * N), 0, P,
-                        P, nullptr);
+    // S_in and S_inᵀ over the walked tiles (the walk ended on a barrier)
+    const float* sc0 = states + (bh * nc + c) * (size_t)(P * N);
+    tile::load_tile<P, N, N, NT>(sin_, sc0, P);
+    tile::cp_async_commit();
+    tile::stage_t<P, N, NT>(sint, sc0);
+    tile::cp_async_wait<0>();
     __syncthreads();
-    float ec[RA];
+    float ec[8];
 #pragma unroll
-    for (int a = 0; a < RA; ++a) ec[a] = expf((float)cum[i0 + ty + 16 * a]);
+    for (int a = 0; a < 8; ++a) ec[a] = expf((float)cum[i0 + ir + a]);
     {
-      float sc[RA][P / 16];                 // (S_in C_i)_p
+      float sc[8][CP];              // (S_in C_i)_p
       zero(sc);
-      mm_abt<RA, P / 16, N>(cs, LN, s_in, LN, sc);
+      tile::abw<8, P, N, N, P>(cs + ir * N, sint, sc);
 #pragma unroll
-      for (int a = 0; a < RA; ++a) {
+      for (int a = 0; a < 8; ++a) {
 #pragma unroll
-        for (int bb = 0; bb < P / 16; ++bb) {
-          ein[a] = fmaf(dys[(ty + 16 * a) * LP + tx + 16 * bb], sc[a][bb],
+        for (int q = 0; q < CP; ++q) {
+          ein[a] = fmaf(dys[(ir + a) * P + tile::col<P>(tx, q)], sc[a][q],
                         ein[a]);
         }
       }
     }
     {
-      float sd[RA][N / 16];                 // (S_inᵀ dy_i)_n
+      float sd[8][CN];              // (S_inᵀ dy_i)_n
       zero(sd);
-      mm_ab<RA, N / 16, P>(dys, LP, s_in, LN, sd);
+      tile::abw<8, N, P, P, N>(dys + ir * P, sin_, sd);
 #pragma unroll
-      for (int a = 0; a < RA; ++a) {
+      for (int a = 0; a < 8; ++a) {
 #pragma unroll
-        for (int bb = 0; bb < N / 16; ++bb) {
-          acc_dc[a][bb] = fmaf(ec[a], sd[a][bb], acc_dc[a][bb]);
+        for (int q = 0; q < CN; ++q) {
+          acc_dc[a][q] = fmaf(ec[a], sd[a][q], acc_dc[a][q]);
         }
       }
     }
 #pragma unroll
-    for (int a = 0; a < RA; ++a) ein[a] = ec[a] * row_sum(ein[a]);
+    for (int a = 0; a < 8; ++a) ein[a] = ec[a] * tile::row_sum16(ein[a]);
   }
   const size_t bhs = (size_t)gridDim.z * H * S;
 #pragma unroll
-  for (int a = 0; a < RA; ++a) {
-    const float rm = row_sum(rowm[a]);
-    const int i = i0 + ty + 16 * a;
+  for (int a = 0; a < 8; ++a) {
+    const float rm = tile::row_sum16(rowm[a]);
+    const int i = i0 + ir + a;
     if (i < valid) {
       const size_t at = xrow0 + i;
-#pragma unroll
-      for (int bb = 0; bb < N / 16; ++bb) {
-        dC_part[at * N + tx + 16 * bb] = acc_dc[a][bb];
-      }
+      tile::store_cols<N>(dC_part + at * N, tx, acc_dc[a]);
       if (tx == 0) steps[kRowPart * bhs + at] = rm + ein[a];
     }
   }
@@ -695,7 +650,8 @@ static int launch(const void* x, const float* dt, const float* A,
                   float* dC_part, float* steps, float* dA_part, void* dx,
                   float* ddt, float* dA, void* dB, void* dC, int B, int H,
                   int S, cudaStream_t st) {
-  constexpr int R = slab_rows(L);
+  using Sl = Slab<P, N, L>;
+  using Ou = Outer<P, N, L>;
   const int nc = (S + L - 1) / L;
   const T* xt = static_cast<const T*>(x);
   const T* bt = static_cast<const T*>(Bm);
@@ -706,16 +662,13 @@ static int launch(const void* x, const float* dt, const float* A,
   auto ka = ssd_bwd_dstate_kernel<T, P, N, L>;
   auto kk = ssd_bwd_keys_kernel<T, P, N, L>;
   auto kr = ssd_bwd_rows_kernel<T, P, N, L>;
-  constexpr size_t smem_a = dstate_smem<P, N, L>();
-  constexpr size_t smem_k = slab_smem<P, N, L, 2>();
-  constexpr size_t smem_r = slab_smem<P, N, L, 1>();
-  if (!raise_smem_limit(ka, smem_a, allowed_a) ||
-      !raise_smem_limit(kk, smem_k, allowed_k) ||
-      !raise_smem_limit(kr, smem_r, allowed_r)) {
+  if (!prefer_smem(ka, Ou::BYTES, allowed_a) ||
+      !prefer_smem(kk, Sl::BYTES, allowed_k) ||
+      !prefer_smem(kr, Sl::BYTES, allowed_r)) {
     return (int)cudaGetLastError();
   }
-  const dim3 chunks(nc, H, B), slabs(nc * (L / R), H, B);
-  ka<<<chunks, kT, smem_a, st>>>(dyt, dt, A, ct, dstates, H, S);
+  const dim3 chunks(nc, H, B), slabs(nc * (L / Sl::R), H, B);
+  ka<<<chunks, Ou::NT, Ou::BYTES, st>>>(dyt, dt, A, ct, dstates, H, S);
   int err = (int)cudaGetLastError();
   if (err != 0) return err;
   const int per_block = kScan * 4;
@@ -725,12 +678,13 @@ static int launch(const void* x, const float* dt, const float* A,
                                               P * N);
   err = (int)cudaGetLastError();
   if (err != 0) return err;
-  kk<<<slabs, kT, smem_k, st>>>(xt, dt, A, bt, ct, dyt, dstates,
-                                static_cast<T*>(dx), dB_part, steps, H, S);
+  kk<<<slabs, Sl::NT, Sl::BYTES, st>>>(xt, dt, A, bt, ct, dyt, dstates,
+                                       static_cast<T*>(dx), dB_part, steps,
+                                       H, S);
   err = (int)cudaGetLastError();
   if (err != 0) return err;
-  kr<<<slabs, kT, smem_r, st>>>(xt, dt, A, bt, ct, dyt, states, dC_part,
-                                steps, H, S);
+  kr<<<slabs, Sl::NT, Sl::BYTES, st>>>(xt, dt, A, bt, ct, dyt, states,
+                                       dC_part, steps, H, S);
   err = (int)cudaGetLastError();
   if (err != 0) return err;
   ssd_bwd_finish_kernel<L><<<chunks, kT, 0, st>>>(

@@ -5,13 +5,16 @@ Replaces the Pallas TPU kernel ``repro/kernels/ssm_scan.py::ssd_scan``
 (body ``_ssd_kernel``). The CUDA source is ``csrc/ssm_scan.cu``; its header
 note says how the TPU grid's sequential chunk axis became three passes
 (every chunk's local state, a scan of the states over the chunks, every
-chunk's outputs), where the bf16 path rounds, and what bounds it.
+chunk's outputs), where the bf16 path (v2, ``mma.sync``) rounds, how the
+float32 path (v3, FMA on register micro-tiles) walks its tiles, and what
+bounds each.
 
 K5-bwd, the gradient of K5's function, has no Pallas counterpart: the
 reference's K5 has no custom_vjp, so JAX trains on its plain path. Here it
-is ``csrc/ssm_scan_bwd.cu`` (every chunk's dY·Cᵀ, a reverse scan of the
+is ``csrc/ssm_scan_bwd.cu`` (v2: every chunk's dY·Cᵀ, a reverse scan of the
 state gradients over the chunks, dX and dB per key slab, dC per row slab,
-then d(dt) and dA, and the sums over heads), reached only through
+then d(dt) and dA, and the sums over heads; the slabs on the micro-tiles
+of K5 v3), reached only through
 ``SSDScan``, a ``torch.autograd.Function`` whose forward is K5 and keeps
 K5's workspace (the state entering each chunk): ``kernels.ops`` routes
 there when grad mode is on and an input requires grad.
@@ -35,6 +38,45 @@ CHUNKS = (32, 128)            # L; 128 is the default, as on the TPU
 # over chunks, the outputs
 PASSES = {"chunk_states": 1, "scan": 2, "outputs": 4}
 ALL_PASSES = 7
+
+# Threads and dynamic shared memory of a block of K5 v3's float32 passes and
+# of K5-bwd v2's micro-tile kernels, as csrc/ssm_scan.cu (f32::OutLayout),
+# csrc/ssm_common.cuh (Outer) and csrc/ssm_scan_bwd.cu (Slab) lay them out;
+# the tests hold every instantiation to two blocks an SM.
+SM_SMEM_BYTES = 233472        # shared memory of an H100 SM (228 KB)
+BLOCK_RESERVED_BYTES = 1024   # what the card keeps of it for each block
+
+
+def slab_rows(chunk: int) -> int:
+    """Rows of a slab and of a tile it walks: the chunk when it is short,
+    else 64 (``slab_rows`` in csrc/ssm_common.cuh)."""
+    return chunk if chunk < 64 else 64
+
+
+def layouts(P: int, N: int, chunk: int) -> dict:
+    """{kernel: (threads, dynamic shared memory bytes)} of one (P, N, chunk)
+    instantiation. The chunk-state pass and K5-bwd's dY·Cᵀ share the outer
+    sum: cum float64, dt and the row scale, then a·s (L, P) and b (L, N).
+    The outputs pass: cum and dt, the slab's C (R, N), then the B tile
+    (R, N + 4), the x tile (R, P) and att (R, R), or S_inᵀ (N, P) over them.
+    K5-bwd's C1 and C2: cum, the slab's (R, P) and (R, N), then two
+    swizzled walked tiles and the score tile, or the state and its
+    transpose over them."""
+    L, R = chunk, slab_rows(chunk)
+    outer = (P // 8 * 16, 16 * L + 4 * L * (P + N))
+    slab = (2 * R, 8 * L + 4 * (R * (P + N)
+                                 + max(R * (P + N + R), 2 * P * N)))
+    return {"ssd_chunk_state_f32": outer,
+            "ssd_output_f32": (2 * R, 12 * L + 4 * (
+                R * N + max(R * (N + 4 + P + R), N * P))),
+            "ssd_bwd_dstate_kernel": outer,
+            "ssd_bwd_keys_kernel": slab,
+            "ssd_bwd_rows_kernel": slab}
+
+
+def blocks_per_sm(smem_bytes: int) -> int:
+    """Blocks of ``smem_bytes`` that an SM's shared memory holds."""
+    return SM_SMEM_BYTES // (smem_bytes + BLOCK_RESERVED_BYTES)
 
 
 def ssd_scan_ref(x, dt, A, Bmat, Cmat, *,

@@ -527,6 +527,34 @@ def test_ssd_scan_every_instantiation_on_card(dtype, P, N, chunk):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("P", SS.HEAD_DIMS)
+@pytest.mark.parametrize("N", SS.STATE_DIMS)
+@pytest.mark.parametrize("chunk", SS.CHUNKS)
+@pytest.mark.parametrize("part", ["short", "one", "slab", "ragged"])
+def test_ssd_scan_f32_v3_edges_on_card(P, N, chunk, part):
+    """K5's float32 kernels (v3) at every (P, N, chunk) against the chunked
+    plain version and the sequential oracle, y and the final state: S <
+    chunk (chunk 0 alone), exactly one chunk, a last chunk whose final slab
+    holds one row, and three chunks with a ragged last one. Two calls give
+    the same bits."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    S = {"short": chunk // 3 + 5, "one": chunk,
+         "slab": 2 * chunk - SS.slab_rows(chunk) + 1,
+         "ragged": 2 * chunk + chunk // 3 + 1}[part]
+    inp = _ssd_inputs(gen, 2, 3, S, N, torch.float32, P)
+    tol = SSD_TOL[torch.float32]
+    y, fs = SS.ssd_scan(*inp, chunk=chunk)
+    y2, fs2 = SS.ssd_scan(*inp, chunk=chunk)
+    torch.cuda.synchronize()
+    assert torch.equal(y, y2) and torch.equal(fs, fs2)
+    for want_y, want_fs in (SS.ssd_scan_ref(*inp, chunk=chunk),
+                            ref.ssd_scan(*inp)):
+        torch.testing.assert_close(y, want_y, atol=tol, rtol=tol)
+        torch.testing.assert_close(fs, want_fs, atol=tol, rtol=tol)
+
+
+@pytest.mark.gpu
 def test_ssd_scan_captures_into_a_cuda_graph():
     """A K5 call (three device kernels, a workspace from torch.empty) needs
     no host sync: it captures into a CUDA graph, and a replay on new inputs
@@ -1134,6 +1162,29 @@ def test_ssd_bwd_every_instantiation_on_card(dtype, P, N, chunk, with_final):
     assert all(torch.equal(a, b) for a, b in zip(got, again))
     _ssd_bwd_close(got, SS.ssd_scan_bwd_ref(*inp, dy, dfinal, chunk=chunk),
                    dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,H,N", [(8, 24, 128), (2, 64, 64)])
+def test_ssd_bwd_v2_repeats_its_bits_at_the_training_shapes(B, H, N):
+    """K5-bwd v2 at mamba2-130m's and zamba2-1.2b's training shapes (S 512,
+    P 64, chunk 128, float32), with a final-state gradient: three calls
+    give the same bits (fixed-order sums, no atomics), within the gate of
+    the plain version."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    inp = _ssd_inputs(gen, B, H, 512, N, torch.float32, 64)
+    dy = _randn(gen, (B, H, 512, 64), torch.float32)
+    dfinal = _randn(gen, (B, H, 64, N), torch.float32)
+    ws = SS.workspace(inp[0], N, 128)
+    SS.ssd_scan(*inp, chunk=128, ws=ws)
+    runs = [SS.ssd_scan_bwd(*inp, dy, dfinal, chunk=128, ws=ws)
+            for _ in range(3)]
+    torch.cuda.synchronize()
+    for again in runs[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(runs[0], again))
+    _ssd_bwd_close(runs[0], SS.ssd_scan_bwd_ref(*inp, dy, dfinal, chunk=128),
+                   torch.float32)
 
 
 @pytest.mark.gpu

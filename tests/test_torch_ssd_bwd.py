@@ -1,6 +1,6 @@
 """CPU rehearsal of K5-bwd's arithmetic against the JAX package.
 
-K5-bwd (``csrc/ssm_scan_bwd.cu``) runs only on a card
+K5-bwd (``csrc/ssm_scan_bwd.cu``, v2) runs only on a card
 (tests/test_torch_gpu.py). Its algorithm is modelled here in torch on the
 CPU, chunk for chunk and slab for slab, and held against two independent
 gradients of the same scan: ``torch.autograd`` of the port's plain chunked
@@ -19,13 +19,15 @@ T = cum_{L−1} and w_j = exp(T − cum_j)·dt_j:
   G_{c−1} = exp(T_c)·G_c + local_c, each chunk left holding the gradient G
   of the state leaving it;
 * pass C1, per key slab of R = min(L, 64) keys j over tiles of rows i ≥ j:
-  dx_j = Σ_i (C_i·B_j) E_ij dt_j dy_i + w_j G B_j, the per-head dB_j =
-  Σ_i (dy_i·x_j) E_ij dt_j C_i + w_j Gᵀ x_j, the column sums of
-  M_ij = (dy_i·x_j)(C_i·B_j) E_ij dt_j, r_j = x_jᵀ G B_j, and the direct
-  d(dt)_j = Σ_i (dy_i·x_j)(C_i·B_j) E_ij + exp(T − cum_j)·r_j;
-* pass C2, per row slab of R rows i over tiles of keys j ≤ i: the per-head
-  dC_i = Σ_j (dy_i·x_j) E_ij dt_j B_j + exp(cum_i) S_inᵀ dy_i, and the row
-  sums of M plus exp(cum_i)·dy_i·(S_in C_i);
+  with u_ji = (dy_i·x_j) E_ij and v_ji = (C_i·B_j) E_ij, dx_j =
+  dt_j Σ_i v_ji dy_i + w_j G B_j, the per-head dB_j = dt_j Σ_i u_ji C_i +
+  Gᵀ (w_j x_j), r_j = x_jᵀ G B_j, the direct d(dt)_j = B_j·Σ_i u_ji C_i +
+  exp(T − cum_j)·r_j (its first term is Σ_i (dy_i·x_j)(C_i·B_j) E_ij), and
+  the column sums of M_ij = (dy_i·x_j)(C_i·B_j) E_ij dt_j as dt_j times it;
+* pass C2, per row slab of R rows i over tiles of keys j ≤ i, with D_ij =
+  (dy_i·x_j) E_ij dt_j: the per-head dC_i = Σ_j D_ij B_j + exp(cum_i)
+  S_inᵀ dy_i, and the row sums of M as C_i·Σ_j D_ij B_j, plus
+  exp(cum_i)·dy_i·(S_in C_i);
 * pass C3: d(cum) = row sums − column sums + exp(cum)·dy·(S_in C) − w·r,
   with dT = exp(T)⟨G, S_in⟩ + Σ_j w_j r_j at position L − 1, reverse-summed
   in float64 into dg; d(dt) += dg·A_h, and a per-(lane, chunk) dA partial
@@ -34,6 +36,12 @@ T = cum_{L−1} and w_j = exp(T − cum_j)·dt_j:
   in a fixed order.
 
 Rows past S load as zeros with dt = 0 and their gradients are never kept.
+The mirror keeps the kernels' order of sums: dt_j scales C1's sums over
+i once the walk is done, w_j scales x_j before Gᵀ·x_j, M's row and column
+sums come from the dC and dB sums (so no two score tiles are live at once
+and C2 forms no C·Bᵀ), and each sum over rows or keys runs in order within
+a tile and tile after tile. The layout test below holds v2's threads and
+shared memory.
 Tolerance: float32 2e-5·max(1, ‖ref‖∞), as on the card. This mirror lives
 here, not in the package.
 """
@@ -113,30 +121,27 @@ def k5_bwd_mirror(x, dt, A, Bm, Cm, dy, dfinal=None, *, chunk):
         for j0 in range(0, L, R):
             xs, bs = xc[:, :, c, j0:j0 + R], Bc[:, c, j0:j0 + R]
             dts = dtc[:, :, c, j0:j0 + R]
-            acc_dx = torch.zeros(B, H, R, P)
-            acc_dB = torch.zeros(B, H, R, N)
-            col_m = torch.zeros(B, H, R)
-            direct = torch.zeros(B, H, R)
+            acc_dx = torch.zeros(B, H, R, P)   # Σ_i v_ji dy_i
+            acc_dB = torch.zeros(B, H, R, N)   # Σ_i u_ji C_i
             for i0 in range(j0, L, R):
                 dys, cs = dyc[:, :, c, i0:i0 + R], Cc[:, c, i0:i0 + R]
                 E = decay(c, i0, R, j0, R).transpose(-1, -2)   # (j, i)
-                cbT = torch.einsum("bjn,bin->bji", bs, cs)[:, None]
-                dyxT = torch.einsum("bhjp,bhip->bhji", xs, dys)
-                attT = cbT * E * dts[..., None]
-                DT = dyxT * E * dts[..., None]
-                col_m += (dyxT * attT).sum(-1)
-                direct += (dyxT * cbT * E).sum(-1)
-                acc_dx += attT @ dys
-                acc_dB += DT @ cs[:, None]
+                u = torch.einsum("bhjp,bhip->bhji", xs, dys) * E
+                acc_dB += u @ cs[:, None]
+                v = torch.einsum("bjn,bin->bji", bs, cs)[:, None] * E
+                acc_dx += v @ dys
+            # the direct term Σ_i (dy_i·x_j)(C_i·B_j) E_ij, through dB's sum
+            direct = (bs[:, None] * acc_dB).sum(-1)
             gc = G[:, :, c]
             gb = torch.einsum("bjn,bhpn->bhjp", bs, gc)
             r = (xs * gb).sum(-1)
             wj = w[:, :, c, j0:j0 + R]
-            acc_dx += wj[..., None] * gb
-            acc_dB += wj[..., None] * (xs @ gc)
+            acc_dx = dts[..., None] * acc_dx + wj[..., None] * gb
+            acc_dB = dts[..., None] * acc_dB + (wj[..., None] * xs) @ gc
             dxc[:, :, c, j0:j0 + R] = acc_dx
             dBp[:, :, c, j0:j0 + R] = acc_dB
-            colpart[:, :, c, j0:j0 + R] = -col_m - wj * r
+            # the column sums of M: dt_j times the direct term
+            colpart[:, :, c, j0:j0 + R] = -dts * direct - wj * r
             wr[:, :, c, j0:j0 + R] = wj * r
             ddt_direct[:, :, c, j0:j0 + R] = direct + torch.exp(
                 (T[:, :, c, None] - cum[:, :, c, j0:j0 + R]).float()) * r
@@ -144,15 +149,14 @@ def k5_bwd_mirror(x, dt, A, Bm, Cm, dy, dfinal=None, *, chunk):
         for i0 in range(0, L, R):
             dys, cs = dyc[:, :, c, i0:i0 + R], Cc[:, c, i0:i0 + R]
             acc_dC = torch.zeros(B, H, R, N)
-            row_m = torch.zeros(B, H, R)
             for j0 in range(0, i0 + R, R):
                 xs, bs = xc[:, :, c, j0:j0 + R], Bc[:, c, j0:j0 + R]
                 E = decay(c, i0, R, j0, R)                     # (i, j)
                 dyx = torch.einsum("bhip,bhjp->bhij", dys, xs)
-                cb = torch.einsum("bin,bjn->bij", cs, bs)[:, None]
                 D = dyx * E * dtc[:, :, c, None, j0:j0 + R]
-                row_m += (D * cb).sum(-1)
                 acc_dC += D @ bs[:, None]
+            # M's row sum Σ_j D_ij (C_i·B_j) = C_i · Σ_j D_ij B_j
+            row_m = (cs[:, None] * acc_dC).sum(-1)
             ein = torch.zeros(B, H, R)
             if c > 0:
                 sin = s_in[:, :, c]
@@ -297,3 +301,26 @@ def test_wrapper_on_the_host_is_the_plain_version():
     assert SS.ssd_scan_bwd.launches == before
     for g, w, t in zip(got, want, (x, dt, A, Bm, Cm)):
         assert g.dtype == t.dtype and torch.equal(g, w)
+
+
+def test_shared_memory_and_tiles_follow_v2():
+    """K5-bwd v2's slab kernels (C1 keys, C2 rows) run 2R threads, 8 slab
+    rows a thread, and every instantiation fits two blocks to an SM; its
+    dY·Cᵀ pass is K5 v3's chunk-state layout. At mamba2-130m's shape (P 64,
+    N 128, chunk 128) C1 and C2 hold 115,712 bytes, two blocks to the byte
+    (228 KB less 1 KB a block): the two walked tiles are swizzled because,
+    padded by 4 floats a row as K1's tiles are, one block would fit."""
+    for P in SS.HEAD_DIMS:
+        for N in SS.STATE_DIMS:
+            for L in SS.CHUNKS:
+                lay = SS.layouts(P, N, L)
+                assert lay["ssd_bwd_keys_kernel"] == lay["ssd_bwd_rows_kernel"]
+                assert lay["ssd_bwd_dstate_kernel"] == \
+                    lay["ssd_chunk_state_f32"]
+                threads, nbytes = lay["ssd_bwd_keys_kernel"]
+                assert threads == 2 * SS.slab_rows(L)
+                assert SS.blocks_per_sm(nbytes) >= 2, (P, N, L)
+    nbytes = SS.layouts(64, 128, 128)["ssd_bwd_keys_kernel"][1]
+    assert nbytes == 115712
+    assert 2 * (nbytes + SS.BLOCK_RESERVED_BYTES) == SS.SM_SMEM_BYTES
+    assert SS.blocks_per_sm(nbytes + 4 * 4 * 64 * 2) == 1
