@@ -191,6 +191,26 @@ Phases, each printing its own lines; any failure exits non-zero:
                step and K1 / K1-bwd 6; and one more zamba2-1.2b step under
                torch.profiler: its wall against its kernels' device time,
                the kernels and host operators that took the most.
+  11. dryrun — the dry run's structures built for real, no kernel on this
+               path: 11a. at full width, mistral-7b decode (B 8, S 4096)
+               with a bf16 and with an int8 KV cache (REPRO_KV_QUANT=1),
+               zamba2-1.2b train (B 2, S 512: params and AdamW state) and
+               whisper-base prefill (B 4, S 448), each built by
+               ``repro_torch.launch.input_specs`` on the meta device and
+               again on the card: every leaf's shape and dtype equal, the
+               card's storage bytes equal to ``launch.dryrun``'s
+               ``argument_size_in_bytes`` on a 1x1 mesh exactly, the
+               allocator's requested bytes grown by that sum exactly, and
+               ``torch.cuda.memory_allocated()`` by that sum plus at most
+               512 bytes a leaf, and 1 MiB more a leaf over 1 MiB (the
+               rest of a free block the caching allocator does not split
+               off); each case printed and freed before the next.
+               11b. a 1-rank NCCL process group (a file:// store under
+               build/) and ``make_debug_mesh(1, 1)`` on "cuda": full
+               smollm-360m's bf16 params distributed as DTensors with the
+               placements of ``params_shardings``, each local shape the
+               spec's ``shard_shape``, ``full_tensor()`` back bit for bit;
+               the group destroyed.
 
 Every serve phase collects garbage and restarts the peak memory count
 first, and prints the bytes still allocated. Phases 5, 6 and 9 run with no
@@ -2946,6 +2966,147 @@ def phase_train(torch, card):
     return out
 
 
+# --------------------------------------------------------------- phase 11
+DRY_CASES = (("mistral-7b", "decode", 8, 4096, False),
+             ("mistral-7b", "decode", 8, 4096, True),
+             (ZAMBA, "train", ZAMBA_TRAIN_B, TRAIN_S, False),
+             (WHISPER, "prefill", 4, 448, False))
+
+
+def _flat_args(args):
+    """Leaf path -> tensor over a step's argument tuple."""
+    from repro_torch.sharding import specs as SH
+    out = {}
+    for i, tree in enumerate(args):
+        SH.map_with_path(lambda p, t, i=i: out.__setitem__(f"{i}/{p}", t),
+                         tree)
+    return out
+
+
+def _requested(torch) -> int:
+    """Bytes the caching allocator was asked for and still holds, before
+    its rounding."""
+    return torch.cuda.memory_stats()["requested_bytes.all.current"]
+
+
+def _allocator_slack(sizes) -> int:
+    """The most ``memory_allocated`` may exceed the sum of ``sizes``: the
+    caching allocator rounds each block up to 512 bytes, and a block over
+    1 MiB keeps the rest of its free block when that rest is 1 MiB or less
+    (it splits only a larger rest)."""
+    return sum(512 + (2**20 if n > 2**20 else 0) for n in sizes)
+
+
+def _dry_case(torch, card, arch, kind, B, S, kv_quant):
+    """Phase 11a, one case: ``input_specs`` on the meta device and on the
+    card, the dry run's bytes on a 1x1 mesh, and the card's growth."""
+    import os
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch import input_specs as IS
+    from repro_torch.launch.mesh import MeshSpec
+    label = f"{arch} {kind} B {B} S {S}{' int8 KV' if kv_quant else ''}"
+    cfg, shape = get_config(arch), InputShape(f"{kind}_{S}", S, B, kind)
+    old = os.environ.pop("REPRO_KV_QUANT", None)
+    if kv_quant:
+        os.environ["REPRO_KV_QUANT"] = "1"
+    try:
+        meta = IS.input_specs(cfg, shape)
+        dry = DR.argument_bytes(MeshSpec(("data", "model"), (1, 1)), cfg,
+                                shape, args=meta)
+        gc.collect()
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_allocated(), _requested(torch)
+        t0 = time.perf_counter()
+        real = IS.input_specs(cfg, shape, device="cuda")
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        grown = torch.cuda.memory_allocated() - before[0]
+        requested = _requested(torch) - before[1]
+    finally:
+        os.environ.pop("REPRO_KV_QUANT", None)
+        if old is not None:
+            os.environ["REPRO_KV_QUANT"] = old
+    m, r = _flat_args(meta), _flat_args(real)
+    same = m.keys() == r.keys() and all(
+        (m[k].shape, m[k].dtype) == (r[k].shape, r[k].dtype) and m[k].is_meta
+        and r[k].is_cuda for k in m)
+    sizes = [t.untyped_storage().nbytes() for t in r.values()]
+    storage, slack = sum(sizes), _allocator_slack(sizes)
+    want = dry["argument_size_in_bytes"]
+    say(f"  11a {label}: {len(r)} leaves, shapes and dtypes equal {same}; "
+        f"dry run per device (1x1) {dry}; card storage {storage} bytes "
+        f"(equal {storage == want}), allocator requests {requested} (equal "
+        f"{requested == storage}); memory_allocated grew {grown} "
+        f"(+{grown - storage}; {sum(n > 2**20 for n in sizes)} of "
+        f"{len(r)} leaves over 1 MiB, limit {slack}); built in "
+        f"{build_s:.3f} s card={card}")
+    if not same or storage != want or requested != storage \
+            or not 0 <= grown - storage <= slack:
+        fail(f"phase 11a: {label}: the card's structures are not the dry "
+             f"run's")
+    del real, meta, m, r
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _dtensor_round_trip(torch, card):
+    """Phase 11b: full smollm-360m's bf16 params as DTensors on a 1x1
+    DeviceMesh of a 1-rank NCCL group, and back."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import model as M
+    from repro_torch.sharding import specs as SH
+    store = ROOT / "build" / "chip_smoke_pg"
+    store.parent.mkdir(parents=True, exist_ok=True)
+    store.unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{store}", rank=0,
+                            world_size=1)
+    try:
+        mesh = make_debug_mesh(1, 1)
+        params = M.init_params(get_config(SMOLLM),
+                               torch.Generator("cuda").manual_seed(SEED),
+                               torch.bfloat16, "cuda")
+        leaves, specs = {}, {}
+        SH.map_with_path(leaves.__setitem__, params)
+        SH.map_with_path(specs.__setitem__, SH.params_shardings(mesh, params))
+        n, same, local_ok = 0, True, True
+        for path, t in leaves.items():
+            spec = specs[path]
+            d = distribute_tensor(t, mesh, SH.to_placements(mesh, spec))
+            local_ok = local_ok and tuple(d.to_local().shape) == \
+                SH.shard_shape(mesh, tuple(t.shape), spec)
+            same = same and torch.equal(d.full_tensor(), t)
+            n += 1
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+        store.unlink(missing_ok=True)
+    say(f"  11b {SMOLLM} bf16 params: {n} leaves distributed on a "
+        f"{SH.axis_sizes(mesh)} NCCL DeviceMesh, local shapes the specs' "
+        f"{local_ok}, full_tensor() bit for bit {same}, "
+        f"{time.perf_counter() - t0:.3f} s with the group card={card}")
+    if not (same and local_ok):
+        fail("phase 11b: a DTensor did not come back bit for bit")
+    del params
+    torch.cuda.empty_cache()
+
+
+def phase_dryrun(torch, card):
+    say("== phase 11: dry run — input_specs on meta and on the card, the "
+        "dry run's bytes, DTensors on a 1-rank NCCL mesh")
+    t0 = time.perf_counter()
+    for case in DRY_CASES:
+        _dry_case(torch, card, *case)
+    _dtensor_round_trip(torch, card)
+    say(f"  11 phase time {time.perf_counter() - t0:.3f} s card={card}")
+
+
 def main() -> None:
     if not (ROOT / "src" / "repro_torch" / "kernels").is_dir():
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it from "
@@ -2976,6 +3137,7 @@ def main() -> None:
     phase_disagg_serve(torch, card)
     launches.update(phase_serve_families(torch, card))
     launches.update(phase_train(torch, card))
+    phase_dryrun(torch, card)
     for kname in ("flash_attention_bwd", f"flash_attention_bwd@{ZAMBA}",
                   "ssd_scan_bwd", f"ssd_scan_bwd@{ZAMBA}"):
         errs[kname] = bwd_worst[kname]

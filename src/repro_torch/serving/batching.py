@@ -87,6 +87,7 @@ class _BatcherBase:
         device, then ONE host sync for all of them."""
         for i, t in zip(lanes, tok_devs):
             self._last_tok[i] = t                         # in place, on device
+        # the admission's one host sync  # repro-lint: allow[torch-host-sync]
         toks = torch.stack(tok_devs).cpu().numpy()
         for i, tok in zip(lanes, toks):
             req = self.active[i]
@@ -100,6 +101,7 @@ class _BatcherBase:
         tick for the bookkeeping."""
         tok_dev = torch.argmax(logits, dim=-1).to(torch.int32)
         self._last_tok = tok_dev
+        # the tick's one host sync  # repro-lint: allow[torch-host-sync]
         toks = tok_dev.cpu().numpy()
         for i in live:
             req = self.active[i]

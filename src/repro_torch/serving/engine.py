@@ -126,6 +126,7 @@ class InferenceEngine:
             out.append(tok)
             # deliberate per-token sync: early EOS exit saves whole decode
             # steps, which dwarfs the transfer cost at batch scale
+            # repro-lint: allow[torch-host-sync]
             if eos_id is not None and bool(torch.all(tok == eos_id)):
                 break
         toks = torch.stack(out, dim=1).cpu().numpy()

@@ -1281,3 +1281,81 @@ def test_reduced_train_step_on_card_matches_plain(arch, bwd):
         lim = 1e-4 * max(1.0, w.abs().max().item())
         assert (g - w).abs().max().item() <= lim
     assert abs(float(out["auto"][2]) - float(out["ref"][2])) < 1e-4
+
+
+# ------------------------------------------------------------ the dry run
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,kind,B,S,kv_quant", [
+    ("mistral-7b", "decode", 8, 4096, False),
+    ("mistral-7b", "decode", 8, 4096, True),
+    ("zamba2-1.2b", "train", 2, 512, False),
+    ("whisper-base", "prefill", 4, 448, False)])
+def test_dry_run_bytes_are_the_cards(arch, kind, B, S, kv_quant,
+                                     monkeypatch):
+    """``input_specs`` on the card gives the meta device's leaves, their
+    storage is the dry run's ``argument_size_in_bytes`` on a 1x1 mesh and
+    the bytes the allocator was asked for, and ``memory_allocated`` grows
+    by that plus the allocator's rounding: 512 bytes a leaf, and 1 MiB
+    more a leaf over 1 MiB (the rest of a free block it does not split
+    off)."""
+    import gc
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch import input_specs as IS
+    from repro_torch.launch.mesh import MeshSpec
+    from repro_torch.sharding import specs as SH
+    _need_card()
+    torch.cuda.init()           # the allocator's stats exist from here on
+    monkeypatch.delenv("REPRO_KV_QUANT", raising=False)
+    if kv_quant:
+        monkeypatch.setenv("REPRO_KV_QUANT", "1")
+    cfg, shape = get_config(arch), InputShape(f"{kind}_{S}", S, B, kind)
+    meta = IS.input_specs(cfg, shape)
+    want = DR.argument_bytes(MeshSpec(("data", "model"), (1, 1)), cfg, shape,
+                             args=meta)["argument_size_in_bytes"]
+    requested = lambda: torch.cuda.memory_stats()[
+        "requested_bytes.all.current"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated(), requested()
+    real = IS.input_specs(cfg, shape, device="cuda")
+    grown = torch.cuda.memory_allocated() - before[0]
+    asked = requested() - before[1]
+    m, r = {}, {}
+    for i, (a, b) in enumerate(zip(meta, real)):
+        SH.map_with_path(lambda p, t, i=i: m.__setitem__(f"{i}/{p}", t), a)
+        SH.map_with_path(lambda p, t, i=i: r.__setitem__(f"{i}/{p}", t), b)
+    assert m.keys() == r.keys()
+    for k in m:
+        assert (m[k].shape, m[k].dtype) == (r[k].shape, r[k].dtype), k
+    sizes = [t.untyped_storage().nbytes() for t in r.values()]
+    assert sum(sizes) == want == asked
+    slack = sum(512 + (2**20 if n > 2**20 else 0) for n in sizes)
+    assert 0 <= grown - want <= slack
+
+
+@pytest.mark.gpu
+def test_params_round_trip_as_dtensors_on_a_1_rank_nccl_mesh(tmp_path):
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import model as M
+    from repro_torch.sharding import specs as SH
+    from _torch_mesh import round_trip
+    _need_card()
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path / 'pg'}",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_debug_mesh(1, 1)
+        params = M.init_params(get_config("smollm-360m"),
+                               torch.Generator("cuda").manual_seed(0),
+                               torch.bfloat16, "cuda")
+        local, same = round_trip(mesh, params)
+    finally:
+        dist.destroy_process_group()
+    assert same
+    leaves = {}
+    SH.map_with_path(leaves.__setitem__, params)
+    assert {p: list(t.shape) for p, t in leaves.items()} == local
