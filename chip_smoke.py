@@ -211,6 +211,20 @@ Phases, each printing its own lines; any failure exits non-zero:
                placements of ``params_shardings``, each local shape the
                spec's ``shard_shape``, ``full_tensor()`` back bit for bit;
                the group destroyed.
+  12. dry-run cost — phase 11a's four cases: ``launch.dryrun.analyze``
+               for one device (plain meta tensors, the numbers of a 1x1
+               mesh of DTensors) predicts the step's FLOPs and temporary
+               bytes; the same
+               step then runs on the card (``launch.dryrun.measure_step``:
+               arguments from ``input_specs`` on "cuda", one warm-up on
+               the ref path, then one under FlopCounterMode after the
+               peak counters are reset): FLOPs equal exactly, and the
+               allocator's requested-bytes peak less the bytes in use
+               before within 2% + 64 MiB of ``temp_size_in_bytes``, every
+               case printed before a miss fails; the walls of the ref and
+               kernel paths (median of 3, CUDA events), and the
+               prediction's FLOPs over the kernel path's wall in TFLOP/s
+               and as a share of the bf16 peak (989e12).
 
 Every serve phase collects garbage and restarts the peak memory count
 first, and prints the bytes still allocated. Phases 5, 6 and 9 run with no
@@ -3107,6 +3121,67 @@ def phase_dryrun(torch, card):
     say(f"  11 phase time {time.perf_counter() - t0:.3f} s card={card}")
 
 
+# --------------------------------------------------------------- phase 12
+MIB = 2**20
+
+
+def _cost_case(torch, card, arch, kind, B, S, kv_quant):
+    """Phase 12, one case: ``analyze``'s prediction for one device (plain
+    meta tensors, which a 1x1 mesh of DTensors equals:
+    tests/test_torch_dryrun_cost.py) against the card's run of the same
+    step. Returns the misses."""
+    import os
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch import dryrun as DR
+    label = f"{arch} {kind} B {B} S {S}{' int8 KV' if kv_quant else ''}"
+    cfg, shape = get_config(arch), InputShape(f"{kind}_{S}", S, B, kind)
+    old = os.environ.pop("REPRO_KV_QUANT", None)
+    if kv_quant:
+        os.environ["REPRO_KV_QUANT"] = "1"
+    try:
+        gc.collect()
+        pred = DR.analyze(cfg, shape)       # one device: plain meta tensors
+        got = DR.measure_step(cfg, shape)
+    finally:
+        os.environ.pop("REPRO_KV_QUANT", None)
+        if old is not None:
+            os.environ["REPRO_KV_QUANT"] = old
+    want, temp = pred["temp_size_in_bytes"], got["temp_size_in_bytes"]
+    limit = 0.02 * want + 64 * MIB
+    tflops = pred["flops"] / (got["kernel_ms"] / 1e3) / 1e12
+    say(f"  12 {label}: predicted flops {pred['flops']} temp {want} bytes "
+        f"(peak {pred['peak_bytes']}, arguments "
+        f"{pred['argument_size_in_bytes']}, bytes accessed "
+        f"{pred['bytes_accessed']}, traced in {pred['trace_s']:.1f} s); "
+        f"card flops {got['flops']} (equal {got['flops'] == pred['flops']}), "
+        f"temp {temp} bytes (gap {temp - want:+d}, limit {limit:.0f}; "
+        f"{got['before']} bytes in use before); walls ref "
+        f"{got['ref_ms']:.3f} ms, kernel path {got['kernel_ms']:.3f} ms; "
+        f"{tflops:.2f} TFLOP/s on the kernel path, "
+        f"{tflops * 1e12 / PEAK_BF16_FLOPS:.2%} of the bf16 peak "
+        f"card={card}")
+    misses = []
+    if got["flops"] != pred["flops"]:
+        misses.append(f"{label}: the card's FLOPs are not the prediction")
+    if abs(temp - want) > limit:
+        misses.append(f"{label}: temporary bytes {temp} against {want}")
+    return misses
+
+
+def phase_dryrun_cost(torch, card):
+    say("== phase 12: the dry run's step analysis against the card — "
+        "FLOPs and temporary bytes of phase 11a's four cases (bf16, the "
+        "ref path)")
+    t0 = time.perf_counter()
+    misses = []
+    for case in DRY_CASES:
+        misses += _cost_case(torch, card, *case)
+    say(f"  12 phase time {time.perf_counter() - t0:.3f} s card={card}")
+    if misses:
+        fail("phase 12: " + "; ".join(misses))
+
+
 def main() -> None:
     if not (ROOT / "src" / "repro_torch" / "kernels").is_dir():
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it from "
@@ -3138,6 +3213,7 @@ def main() -> None:
     launches.update(phase_serve_families(torch, card))
     launches.update(phase_train(torch, card))
     phase_dryrun(torch, card)
+    phase_dryrun_cost(torch, card)
     for kname in ("flash_attention_bwd", f"flash_attention_bwd@{ZAMBA}",
                   "ssd_scan_bwd", f"ssd_scan_bwd@{ZAMBA}"):
         errs[kname] = bwd_worst[kname]

@@ -1359,3 +1359,26 @@ def test_params_round_trip_as_dtensors_on_a_1_rank_nccl_mesh(tmp_path):
     leaves = {}
     SH.map_with_path(leaves.__setitem__, params)
     assert {p: list(t.shape) for p, t in leaves.items()} == local
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["train", "prefill"])
+def test_dry_run_cost_is_the_cards(kind):
+    """chip_smoke.py's phase 12 at reduced smollm-360m: ``analyze``'s FLOPs
+    for one device (plain meta tensors, and a 1x1 mesh of DTensors) equal
+    FlopCounterMode's on the card, and its temporary bytes the
+    allocator's requested-bytes peak within 2% + 64 MiB."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch.mesh import MeshSpec
+    _need_card()
+    cfg = get_config("smollm-360m").reduced()
+    shape = InputShape(f"{kind}_128", 128, 4, kind)
+    pred = DR.analyze(cfg, shape)
+    one = DR.analyze(cfg, shape, MeshSpec(("data", "model"), (1, 1)))
+    assert one["flops"] == pred["flops"]
+    got = DR.measure_step(cfg, shape, reps=0)
+    assert got["flops"] == pred["flops"] > 0
+    want = pred["temp_size_in_bytes"]
+    assert abs(got["temp_size_in_bytes"] - want) <= 0.02 * want + 64 * 2**20
