@@ -212,9 +212,10 @@ Phases, each printing its own lines; any failure exits non-zero:
                spec's ``shard_shape``, ``full_tensor()`` back bit for bit;
                the group destroyed.
   12. dry-run cost — phase 11a's four cases: ``launch.dryrun.analyze``
-               for one device (plain meta tensors, the numbers of a 1x1
-               mesh of DTensors) predicts the step's FLOPs and temporary
-               bytes; the same
+               for one device (a 1x1 mesh of DTensors; on a torch older
+               than the mesh path is held on, ``analyze`` refuses the mesh,
+               the phase prints why and predicts from plain meta tensors)
+               predicts the step's FLOPs and temporary bytes; the same
                step then runs on the card (``launch.dryrun.measure_step``:
                arguments from ``input_specs`` on "cuda", one warm-up on
                the ref path, then one under FlopCounterMode after the
@@ -225,6 +226,25 @@ Phases, each printing its own lines; any failure exits non-zero:
                kernel paths (median of 3, CUDA events), and the
                prediction's FLOPs over the kernel path's wall in TFLOP/s
                and as a share of the bf16 peak (989e12).
+  13. graphs — the engine's serve steps replayed as CUDA graphs
+               (``InferenceEngine(..., graphs=True)``, the default, which
+               phases 4-9 use) against the eager steps (``graphs=False``),
+               full mistral-7b, bf16: 13a. one eager and one replayed
+               decode step at phase 12's case (B 8, a 4096-row cache
+               filled to 4032 rows with seeded values; bf16, then int8 KV)
+               under torch.profiler: host ms, wall ms, device ms, device
+               ops and the device's idle share; the same for one decode
+               tick of phase 5's paged batcher (4 lanes); 13b. the decode
+               step's wall, eager against replayed, the median of 20
+               between CUDA events, the first replayed call (warm-up and
+               capture) on its own, the logits' max |d| against the eager
+               step and the greedy tokens (equal, or the phase fails);
+               13c. the serve walls of phases 5 and 7 (the mix through
+               FleetRouter, paged, bf16 and int8 KV with the fused read)
+               and 4 whisper-base requests through ``generate``, eager,
+               replayed, replayed, eager in one call: the ticks, the
+               captures and the replays; tokens and ``fleet_report()``
+               bookings identical in all four turns, or the phase fails.
 
 Every serve phase collects garbage and restarts the peak memory count
 first, and prints the bytes still allocated. Phases 5, 6 and 9 run with no
@@ -1596,12 +1616,23 @@ def _mix(cfg):
     return work, [rng.integers(0, cfg.vocab_size, size=m) for m, _ in work]
 
 
-def _serve_mix(torch, cfg, engine, kernels, *, paged):
+def _count_ticks(router, ticks):
+    """Counts every batcher tick of ``router`` in ``ticks[0]``."""
+    for cb in router.batchers.values():
+        def step(inner=cb.step):
+            ticks[0] += 1
+            inner()
+        cb.step = step
+
+
+def _serve_mix(torch, cfg, engine, kernels, *, paged, verbose=True):
     """The fixed mix: 8 requests from sample_workload(8, seed) (m and n
     capped) behind FleetRouter(capacity_aware) over paper_fleet() with
     batchers (paged or dense, 4 slots), then the first 2 again through the
     engine-only path. Checks every output; returns each kernel's launches in
-    the mix, counted from 0, and the wall seconds."""
+    the mix, counted from 0, the wall seconds, the served tokens and
+    {"reports": both routers' fleet_report(), "ticks": batcher ticks}.
+    ``verbose=False`` prints no line per request and pool."""
     from repro_torch.core.systems import paper_fleet
     from repro_torch.serving.router import FleetRouter
 
@@ -1624,6 +1655,8 @@ def _serve_mix(torch, cfg, engine, kernels, *, paged):
                                 block_size=16)
     else:
         batched.attach_batchers(slots=4, paged=False)
+    ticks = [0]
+    _count_ticks(batched, ticks)
     routed = [batched.submit(p, n) for p, (_, n) in zip(prompts[:8], work[:8])]
     batched.drain()
     direct = FleetRouter(cfg, pools, engines, policy="capacity_aware",
@@ -1638,31 +1671,36 @@ def _serve_mix(torch, cfg, engine, kernels, *, paged):
         toks = rr.request.out_tokens if rr.request is not None \
             else list(rr.output)
         path = kind if rr.request is not None else "engine"
-        say(f"  req{rr.rid:3d} [{path:6s}] m={m:4d} n={n:3d} -> {rr.pool:10s} "
-            f"E={rr.energy_j:9.3f}J R={rr.runtime_s:7.4f}s "
-            f"tokens[:8]={[int(t) for t in toks[:8]]}")
+        if verbose:
+            say(f"  req{rr.rid:3d} [{path:6s}] m={m:4d} n={n:3d} -> "
+                f"{rr.pool:10s} E={rr.energy_j:9.3f}J R={rr.runtime_s:7.4f}s"
+                f" tokens[:8]={[int(t) for t in toks[:8]]}")
         if len(toks) != n or not all(0 <= int(t) < cfg.vocab_size
                                      for t in toks):
             fail(f"{cfg.name} request {rr.rid}: {len(toks)} tokens for a "
                  f"budget of {n}, or a token outside the vocabulary")
         if rr.request is not None and not rr.request.done:
             fail(f"{cfg.name} request {rr.rid} not done after drain()")
-    for name, router in ((kind, batched), ("engine", direct)):
-        for pool, st in router.fleet_report().items():
-            say(f"  fleet_report[{name}] {pool:10s} queries={st['queries']} "
-                f"tokens={st['tokens']} energy_j={st['energy_j']:.3f} "
-                f"runtime_s={st['runtime_s']:.4f}")
-    if paged:
+    reports = {name: router.fleet_report()
+               for name, router in ((kind, batched), ("engine", direct))}
+    for name, rep in reports.items():
+        for pool, st in rep.items():
+            if verbose:
+                say(f"  fleet_report[{name}] {pool:10s} queries="
+                    f"{st['queries']} tokens={st['tokens']} energy_j="
+                    f"{st['energy_j']:.3f} runtime_s={st['runtime_s']:.4f}")
+    if paged and verbose:
         for pool, cb in batched.batchers.items():
             say(f"  batcher {pool}: {cb.stats()}")
     served = sum(st["queries"] for r in (batched, direct)
                  for st in r.fleet_report().values())
     if served != 10:
         fail(f"{cfg.name}: fleet reports count {served} queries, expected 10")
-    say(f"  launches in this run: {launches}")
+    if verbose:
+        say(f"  launches in this run: {launches}")
     tokens = [list(map(int, rr.request.out_tokens if rr.request is not None
                        else rr.output)) for rr in routed]
-    return launches, wall, tokens
+    return launches, wall, tokens, {"reports": reports, "ticks": ticks[0]}
 
 
 def _fresh_peak(torch):
@@ -1699,8 +1737,8 @@ def _serve(torch, card, arch, kernels, needed, *, paged, kv_quant=False,
     engine = InferenceEngine(cfg, params, max_len=MAX_LEN,
                              dtype=torch.bfloat16, device="cuda",
                              kv_quant=kv_quant)
-    launches, wall, tokens = _serve_mix(torch, cfg, engine, kernels,
-                                        paged=paged)
+    launches, wall, tokens, _ = _serve_mix(torch, cfg, engine, kernels,
+                                           paged=paged)
     if not all(launches[k] > 0 for k in needed):
         fail(f"{arch}: a kernel of the serving path never launched "
              f"(needs {needed}): {launches}")
@@ -3125,11 +3163,11 @@ def phase_dryrun(torch, card):
 MIB = 2**20
 
 
-def _cost_case(torch, card, arch, kind, B, S, kv_quant):
-    """Phase 12, one case: ``analyze``'s prediction for one device (plain
-    meta tensors, which a 1x1 mesh of DTensors equals:
-    tests/test_torch_dryrun_cost.py) against the card's run of the same
-    step. Returns the misses."""
+def _cost_case(torch, card, arch, kind, B, S, kv_quant, mesh):
+    """Phase 12, one case: ``analyze``'s prediction for one device (on
+    ``mesh``, a 1x1 mesh of DTensors, or plain meta tensors where the
+    card's torch is older than the mesh path is held on) against the
+    card's run of the same step. Returns the misses."""
     import os
     from repro_torch.configs import get_config
     from repro_torch.configs.base import InputShape
@@ -3141,7 +3179,7 @@ def _cost_case(torch, card, arch, kind, B, S, kv_quant):
         os.environ["REPRO_KV_QUANT"] = "1"
     try:
         gc.collect()
-        pred = DR.analyze(cfg, shape)       # one device: plain meta tensors
+        pred = DR.analyze(cfg, shape, mesh)
         got = DR.measure_step(cfg, shape)
     finally:
         os.environ.pop("REPRO_KV_QUANT", None)
@@ -3150,7 +3188,8 @@ def _cost_case(torch, card, arch, kind, B, S, kv_quant):
     want, temp = pred["temp_size_in_bytes"], got["temp_size_in_bytes"]
     limit = 0.02 * want + 64 * MIB
     tflops = pred["flops"] / (got["kernel_ms"] / 1e3) / 1e12
-    say(f"  12 {label}: predicted flops {pred['flops']} temp {want} bytes "
+    say(f"  12 {label}: predicted on {'a 1x1 mesh' if mesh else 'plain meta'}"
+        f": flops {pred['flops']} temp {want} bytes "
         f"(peak {pred['peak_bytes']}, arguments "
         f"{pred['argument_size_in_bytes']}, bytes accessed "
         f"{pred['bytes_accessed']}, traced in {pred['trace_s']:.1f} s); "
@@ -3173,13 +3212,264 @@ def phase_dryrun_cost(torch, card):
     say("== phase 12: the dry run's step analysis against the card — "
         "FLOPs and temporary bytes of phase 11a's four cases (bf16, the "
         "ref path)")
+    from repro_torch.launch import dryrun as DR
     t0 = time.perf_counter()
+    try:
+        DR.check_mesh_torch()
+        mesh = DR.ONE_DEVICE
+    except RuntimeError as refused:
+        say(f"  12 analyze refuses a mesh here: {refused}")
+        mesh = None
     misses = []
     for case in DRY_CASES:
-        misses += _cost_case(torch, card, *case)
+        misses += _cost_case(torch, card, *case, mesh)
     say(f"  12 phase time {time.perf_counter() - t0:.3f} s card={card}")
     if misses:
         fail("phase 12: " + "; ".join(misses))
+
+
+# --------------------------------------------------------------- phase 13
+DECODE_B, DECODE_S = 8, 4096          # phase 12's mistral-7b decode case
+DECODE_POS = DECODE_S - 64            # cache rows filled before step one
+
+
+def _profile_call(torch, fn):
+    """One call of ``fn`` under torch.profiler: the host ms until it
+    returns, the wall ms until the card is done, the device ms its device
+    ops hold (their sum), how many ran, and the idle share of the wall."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        host = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    ops = [e for e in prof.key_averages()
+           if str(e.device_type).endswith("CUDA")]
+    busy = sum(e.self_device_time_total for e in ops) / 1e3
+    top = sorted(ops, key=lambda e: e.self_device_time_total, reverse=True)
+    return {"host_ms": host * 1e3, "wall_ms": wall * 1e3, "device_ms": busy,
+            "device_ops": sum(e.count for e in ops),
+            "idle": 1.0 - busy / (wall * 1e3),
+            "top": [(e.key[:56], e.count, e.self_device_time_total / 1e3)
+                    for e in top[:5]]}
+
+
+def _fmt(p):
+    top = "; ".join(f"{k} x{n} {ms:.3f} ms" for k, n, ms in p["top"])
+    return (f"host {p['host_ms']:.3f} ms, wall {p['wall_ms']:.3f} ms, "
+            f"device {p['device_ms']:.3f} ms over {p['device_ops']} device "
+            f"ops, idle {p['idle']:.1%}; device ms by op: {top}")
+
+
+def _decode_setup(torch, cfg, params, quant):
+    """Two engines on one set of weights, eager and replayed, each with a
+    B 8 cache of 4096 rows filled to ``DECODE_POS`` with seeded values (the
+    same in both)."""
+    from repro_torch.serving.engine import InferenceEngine
+    eng = {g: InferenceEngine(cfg, params, max_len=DECODE_S,
+                              dtype=torch.bfloat16, device="cuda",
+                              kv_quant=quant, graphs=g)
+           for g in (False, True)}
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    base = eng[False].new_cache(DECODE_B)
+    for k, t in base.items():
+        if k == "pos":
+            t.fill_(DECODE_POS)
+        elif t.dtype == torch.int8:
+            t.random_(-127, 128, generator=gen)
+        elif k.endswith("scale"):
+            t.uniform_(0.005, 0.02, generator=gen)
+        else:
+            t.normal_(generator=gen)
+    return eng, {False: base, True: {k: t.clone() for k, t in base.items()}}
+
+
+def _decode_graphs(torch, card, cfg, params, quant):
+    """13a and 13b for one KV dtype: the replayed step's first call (the
+    warm-up and the capture), one eager and one replayed step under
+    torch.profiler, then 20 of each in turns between CUDA events; the
+    logits of every step against the eager step's. Returns the medians."""
+    label = "int8 KV" if quant else "bf16 KV"
+    eng, cache = _decode_setup(torch, cfg, params, quant)
+    tok = torch.zeros((DECODE_B, 1), dtype=torch.int32, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got, _ = eng[True].decode(tok, cache[True])
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+    want, _ = eng[False].decode(tok, cache[False])
+    errs, same = [(got - want).float().abs().max().item()], [
+        torch.equal(got.argmax(-1), want.argmax(-1))]
+    prof, out = {}, {}
+    tok = want.argmax(-1).to(torch.int32)[:, None]
+    for g in (False, True):
+        def step(g=g):
+            out[g] = eng[g].decode(tok, cache[g])[0]
+        prof[g] = _profile_call(torch, step)
+    errs.append((out[True] - out[False]).float().abs().max().item())
+    same.append(torch.equal(out[True].argmax(-1), out[False].argmax(-1)))
+    for g in (False, True):
+        say(f"  13a mistral-7b decode B {DECODE_B}, {DECODE_S}-row cache at "
+            f"{DECODE_POS}, {label}, {'replayed' if g else 'eager'}: "
+            f"{_fmt(prof[g])} card={card}")
+    walls = {False: [], True: []}
+    tok = out[False].argmax(-1).to(torch.int32)[:, None]
+    for _ in range(20):
+        for g in (False, True):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out[g], _ = eng[g].decode(tok, cache[g])
+            end.record()
+            torch.cuda.synchronize()
+            walls[g].append(start.elapsed_time(end))
+        errs.append((out[True] - out[False]).float().abs().max().item())
+        same.append(torch.equal(out[True].argmax(-1), out[False].argmax(-1)))
+        tok = out[False].argmax(-1).to(torch.int32)[:, None]
+    med = {g: sorted(w)[len(w) // 2] for g, w in walls.items()}
+    r = eng[True].graphs
+    say(f"  13b {label}: decode wall (median of 20, CUDA events) eager "
+        f"{med[False]:.3f} ms, replayed {med[True]:.3f} ms "
+        f"({med[False] / med[True]:.2f}x); the first replayed call (warm-up "
+        f"and capture) {first * 1e3:.3f} ms; captures {r.captures}, replays "
+        f"{r.replays}; logits max|d| against the eager step "
+        f"{max(errs):.3e} over {len(errs)} steps, greedy tokens equal "
+        f"{all(same)} card={card}")
+    if not all(same) or r.captures != 1:
+        fail(f"phase 13b {label}: the replayed decode step is not the "
+             f"eager one")
+    del eng, cache, out, got, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    return med
+
+
+def _tick_trace(torch, card, cfg, params):
+    """13a, the serving tick: a paged batcher of phase 5's shape (4 slots,
+    1024 blocks of 16) with 4 of the mix's prompts, their first 256
+    tokens, decoding; one decode tick under torch.profiler, eager and
+    replayed."""
+    from repro_torch.serving.batching import PagedContinuousBatcher, Request
+    from repro_torch.serving.engine import InferenceEngine
+    _, prompts = _mix(cfg)
+    for g in (False, True):
+        eng = InferenceEngine(cfg, params, max_len=MAX_LEN,
+                              dtype=torch.bfloat16, device="cuda", graphs=g)
+        cb = PagedContinuousBatcher(eng, slots=4, num_blocks=1024,
+                                    block_size=16)
+        for i, p in enumerate(prompts[:4]):
+            cb.submit(Request(i, p[:256], max_new_tokens=48))
+        while len(cb._decode_lanes()) < 4:
+            cb.step()
+        for _ in range(3):
+            cb.step()
+        p = _profile_call(torch, cb.step)
+        say(f"  13a phase 5's decode tick (4 lanes, paged, bf16), "
+            f"{'replayed' if g else 'eager'}: {_fmt(p)} card={card}")
+        del cb, eng
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def _turns(torch, card, label, run):
+    """``run(graphs)`` eager, replayed, replayed, eager; each returns
+    (wall s, tokens, bookings, ticks, runner). Fails unless every turn's
+    tokens and bookings are the first's."""
+    rows = []
+    for g in (False, True, True, False):
+        gc.collect()
+        torch.cuda.empty_cache()
+        wall, tokens, books, ticks, runner = run(g)
+        rows.append((g, wall, tokens, books))
+        what = (f"captures {runner.captures}, replays {runner.replays}"
+                if runner is not None else "no runner")
+        say(f"  13c {label} graphs={g}: wall {wall:.3f} s, ticks {ticks}, "
+            f"{what} card={card}")
+        gc.collect()
+        torch.cuda.empty_cache()
+    same_t = all(r[2] == rows[0][2] for r in rows)
+    same_b = all(r[3] == rows[0][3] for r in rows)
+    old = [r[1] for r in rows if not r[0]]
+    new = [r[1] for r in rows if r[0]]
+    say(f"  13c {label}: walls eager {old[0]:.3f} / {old[1]:.3f} s, "
+        f"replayed {new[0]:.3f} / {new[1]:.3f} s; tokens identical {same_t}, "
+        f"bookings identical {same_b} card={card}")
+    if not (same_t and same_b):
+        fail(f"phase 13c {label}: graphs=True served other tokens or "
+             f"bookings than graphs=False")
+
+
+def phase_graphs(torch, card):
+    """Phase 13: the serve steps replayed as CUDA graphs against the eager
+    steps: 13a traces, 13b the decode step's wall, 13c serve walls in
+    turns."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import autotune as AT
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models import model as M
+    from repro_torch.serving.engine import InferenceEngine
+    say("== phase 13: graphs — the serve steps replayed as CUDA graphs "
+        "against the eager steps (mistral-7b 32 layers, whisper-base; bf16)")
+    t0 = time.perf_counter()
+    _fresh_peak(torch)
+    cfg = get_config("mistral-7b")
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(
+        SEED), torch.bfloat16, "cuda")
+    for quant in (False, True):
+        _decode_graphs(torch, card, cfg, params, quant)
+    _tick_trace(torch, card, cfg, params)
+
+    kernels = (FA.flash_attention, DA.decode_attention,
+               DA.paged_decode_attention, DA.paged_decode_attention_int8)
+    for phase, quant in ((5, False), (7, True)):
+        def run(g, quant=quant):
+            eng = InferenceEngine(cfg, params, max_len=MAX_LEN,
+                                  dtype=torch.bfloat16, device="cuda",
+                                  kv_quant=quant, graphs=g)
+            _, wall, tokens, info = _serve_mix(torch, cfg, eng, kernels,
+                                               paged=True, verbose=False)
+            return wall, tokens, info["reports"], info["ticks"], eng.graphs
+        if quant:
+            AT.install(_fused_cache({_paged_bucket(4, MAX_LEN, 16)}))
+        try:
+            _turns(torch, card, f"phase {phase} (mistral-7b, paged, "
+                   f"{'int8' if quant else 'bf16'} KV)", run)
+        finally:
+            AT.install(None)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    wcfg = get_config(WHISPER)
+    wparams = M.init_params(wcfg, torch.Generator(device="cuda").manual_seed(
+        SEED), torch.bfloat16, "cuda")
+    work, prompts = _mix(wcfg)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    reqs = [({"tokens": torch.from_numpy(p[:W_PROMPT].astype("int32"))[None]
+              .cuda(),
+              "frames": _seeded_embeddings(torch, gen, (1, WENC,
+                                                        wcfg.d_model))}, n)
+            for p, (_, n) in zip(prompts[:4], work[:4])]
+
+    def run_whisper(g):
+        eng = InferenceEngine(wcfg, wparams, max_len=W_MAX_LEN,
+                              dtype=torch.bfloat16, device="cuda", graphs=g)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        tokens = [eng.generate(b, n).tokens.tolist() for b, n in reqs]
+        torch.cuda.synchronize()
+        return time.perf_counter() - t1, tokens, None, sum(
+            n - 1 for _, n in reqs), eng.graphs
+    _turns(torch, card, f"{WHISPER} generate (4 requests, full, bf16)",
+           run_whisper)
+    del wparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    say(f"  13 phase time {time.perf_counter() - t0:.3f} s card={card}")
 
 
 def main() -> None:
@@ -3214,6 +3504,7 @@ def main() -> None:
     launches.update(phase_train(torch, card))
     phase_dryrun(torch, card)
     phase_dryrun_cost(torch, card)
+    phase_graphs(torch, card)
     for kname in ("flash_attention_bwd", f"flash_attention_bwd@{ZAMBA}",
                   "ssd_scan_bwd", f"ssd_scan_bwd@{ZAMBA}"):
         errs[kname] = bwd_worst[kname]

@@ -28,9 +28,11 @@ what one device does (``step_cost.StepCost``):
   does not, so AdamW's old and new state coexist, as on the card;
 * ``collectives``: bytes (result shapes, as ``parse_collective_bytes``
   sums them) and ``counts`` of each op of ``COLLECTIVE_OPS``, by XLA's
-  names. The redistributions are DTensor's, not GSPMD's (partial sums
-  are reduced at once, as one all-reduce), so per-op counts and bytes
-  differ from the reference's;
+  names. They are DTensor's plan, chosen op by op (partial sums are
+  reduced at once, as one all-reduce), not GSPMD's plan of the whole
+  program, so per-op counts and bytes differ from the reference's
+  (``tests/test_torch_dryrun_cost.py`` pins the port's and prints the
+  gap); do not quote them as GSPMD's;
 * ``reshards``: ops DTensor refused, done as a partitioner would
   (``step_cost``'s docstring says how), with their counts;
 * ``trace_s``: seconds to build and run the step on meta (the
@@ -42,8 +44,13 @@ shard-to-shard move as an all-gather (gloo has no all-to-all), on a
 card is needed. On 2x16x16 the ("pod", "data") pair the batch splits
 over is one mesh dim of 32 (``_fold_pods``). A 1x1 mesh gives exactly
 the numbers of the same step on plain meta tensors
-(``analyze(..., mesh=None)``). A step that DTensor still refuses is a
-FAIL record carrying the op and DTensor's message. ``measure_step`` runs
+(``analyze(..., mesh=None)``) under the torch the mesh path is held on
+(``MESH_TORCH`` and later); on an older torch ``analyze`` refuses a mesh
+and names the version: under 2.11 DTensor refuses the decode's cache
+writes and the count of int8 decode's temporaries grows by 268,920,064
+bytes on 1x1, and zamba2's train step stops at a spec with one placement
+on a two-dim mesh. A step that DTensor still refuses is a FAIL record
+carrying the op and DTensor's message. ``measure_step`` runs
 the same step on the card, where FlopCounterMode and the allocator's
 requested-bytes peak check one device's prediction (``chip_smoke.py``'s
 phase 12).
@@ -61,6 +68,7 @@ import argparse
 import json
 import math
 import os
+import re
 import time
 from contextlib import contextmanager
 from typing import Any, Dict, List, Optional
@@ -82,6 +90,22 @@ RESULTS_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
                            "experiments", "dryrun_torch")
 COLLECTIVE_OPS = SC.COLLECTIVE_OPS
 ONE_DEVICE = MeshSpec(("data", "model"), (1, 1))
+# the oldest torch whose DTensor the mesh path is held on (a 1x1 mesh gives
+# the plain-meta numbers exactly: tests/test_torch_dryrun_cost.py)
+MESH_TORCH = (2, 13)
+
+
+def check_mesh_torch(version: Optional[str] = None) -> None:
+    """Raises on a torch older than ``MESH_TORCH`` (this one's unless
+    ``version`` is given), naming it."""
+    version = version or torch.__version__
+    got = tuple(int(v) for v in re.match(r"(\d+)\.(\d+)", version).groups())
+    if got < MESH_TORCH:
+        raise RuntimeError(
+            f"analyze on a mesh is held on torch "
+            f"{'.'.join(map(str, MESH_TORCH))} and later, not on {version}: "
+            f"its DTensor gives other numbers there; use mesh=None (one "
+            f"device, plain meta tensors)")
 
 
 # --------------------------------------------------------------------- steps
@@ -243,7 +267,7 @@ def count_step(step, args) -> Dict[str, Any]:
     cost = SC.StepCost()
     held = cost.track(_local(args))
     try:
-        with implicit_replication(), cost, SC.HostConstants(cost):
+        with implicit_replication(), cost:
             out = step(*args)
     except Exception as e:
         e.failed_op = cost.failed_op
@@ -264,7 +288,10 @@ def analyze(cfg: ModelConfig, shape: InputShape,
     a fake process group; ``mesh=None`` runs plain meta tensors, one
     device. ``held_argument_bytes`` is what the run held: it exceeds
     ``argument_size_in_bytes`` only where ZeRO-1 splits a layer list by
-    layer (``zero_layer_axis``), which no placement expresses."""
+    layer (``zero_layer_axis``), which no placement expresses. A mesh on a
+    torch older than ``MESH_TORCH`` raises (``check_mesh_torch``)."""
+    if mesh is not None:
+        check_mesh_torch()
     t0 = time.perf_counter()
     cfg = ISPEC.adapt_config(cfg, shape)
     args = ISPEC.input_specs(cfg, shape)

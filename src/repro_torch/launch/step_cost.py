@@ -50,11 +50,6 @@ partitioner would, and counts it under ``reshards``:
   dim at a time, the last mesh dim first ("model" before "data"); an
   in-place op keeps its own tensor's placement.
 
-A small constant made from host values (``torch.as_tensor(values,
-device=...)``, seen by ``HostConstants``) keeps them beside its meta copy,
-so an op whose output shape needs them (``repeat_interleave`` by a
-tensor: M-RoPE's section ids) gets its ``output_size`` as on a device.
-
 What is still refused raises, and the caller records the op
 (``failed_op``, the first to fail) and DTensor's message.
 """
@@ -66,7 +61,6 @@ import weakref
 from typing import Any, Dict, List, Optional
 
 import torch
-from torch.overrides import TorchFunctionMode
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
 from torch.utils.flop_counter import flop_registry
@@ -187,27 +181,6 @@ def _is_dtensor_type(t) -> bool:
     return issubclass(t, DTensor)
 
 
-class HostConstants(TorchFunctionMode):
-    """Keeps the values of small meta tensors made from Python values, for
-    ``StepCost``'s ops whose shape needs them."""
-
-    def __init__(self, cost: "StepCost"):
-        super().__init__()
-        self.cost = cost
-
-    def __torch_function__(self, func, types, args=(), kwargs=None):
-        kwargs = kwargs or {}
-        out = func(*args, **kwargs)
-        if func in (torch.as_tensor, torch.tensor) and args \
-                and isinstance(out, torch.Tensor) \
-                and out.is_meta and out.numel() <= 64 \
-                and not isinstance(args[0], torch.Tensor):
-            values = torch.as_tensor(args[0])
-            self.cost._values[out] = values
-            self.cost._constants[(tuple(out.shape), out.dtype)] = values
-        return out
-
-
 class StepCost(TorchDispatchMode):
     """Counts one device's FLOPs, bytes, live storages (those on the meta
     device) and collectives of what runs under it."""
@@ -223,8 +196,6 @@ class StepCost(TorchDispatchMode):
         self.reshards: Dict[str, int] = {}
         self.failed_op: Optional[str] = None
         self._live = WeakIdKeyDictionary()
-        self._values = WeakIdKeyDictionary()    # small constants' values
-        self._constants: Dict[Any, torch.Tensor] = {}
         self._passthrough = False
         self._distributed = False           # a DTensor op has been seen
 
@@ -259,14 +230,6 @@ class StepCost(TorchDispatchMode):
                 seen[st._cdata] = st.nbytes()
         return sum(seen.values())
 
-    def _host_values(self, t: torch.Tensor) -> Optional[torch.Tensor]:
-        """The values of a small tensor made from host values; one made
-        again by a recompute under remat (where no function mode runs)
-        takes those of the last such constant of its shape and dtype."""
-        if t in self._values:
-            return self._values[t]
-        return self._constants.get((tuple(t.shape), t.dtype))
-
     # ------------------------------------------------------------ dispatch
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
@@ -285,11 +248,6 @@ class StepCost(TorchDispatchMode):
                 out = func.decompose(*args, **kwargs)
             if out is not NotImplemented:
                 return out
-        if func is aten.repeat_interleave.Tensor \
-                and kwargs.get("output_size") is None:
-            values = self._host_values(args[0])
-            if values is not None:
-                kwargs = dict(kwargs, output_size=int(values.sum()))
         try:
             out = func(*args, **kwargs)
         except Exception:

@@ -115,10 +115,12 @@ def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, theta: float,
     dev = x.device
     exponent = torch.arange(half, dtype=torch.float32, device=dev) / half
     inv_freq = 1.0 / (theta ** exponent)
-    # per frequency index, the position stream that drives it
-    sec_id = torch.repeat_interleave(
-        torch.arange(3, device=dev),
-        torch.as_tensor(tuple(sections), device=dev))
+    # per frequency index, the position stream that drives it, from device
+    # comparisons alone (no host values copied in: the decode step replays
+    # as a CUDA graph)
+    idx = torch.arange(half, device=dev)
+    sec_id = (idx >= sections[0]).long() \
+        + (idx >= sections[0] + sections[1]).long()
     pos = positions3.float()[..., sec_id]                  # (B, S, half)
     ang = pos * inv_freq
     cos = torch.cos(ang)[:, None]

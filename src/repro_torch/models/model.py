@@ -621,26 +621,40 @@ def init_paged_cache(cfg: ModelConfig, lanes: int, num_blocks: int,
     return cache
 
 
+def _index(x, device) -> torch.Tensor:
+    """A lane or a count as a 0-d int32 tensor on ``device``: a tensor as
+    given, a Python int filled in on the device (no host-to-device copy)."""
+    if isinstance(x, torch.Tensor):
+        if x.dim() != 0:
+            raise ValueError(f"expected a 0-d tensor, got {tuple(x.shape)}")
+        return x
+    return torch.full((), x, dtype=torch.int32, device=device)
+
+
 def prefill_paged_chunk(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
-                        cache, *, lane: int, n_valid: int,
-                        backend: str = "auto"):
+                        cache, *, lane, n_valid, backend: str = "auto"):
     """Prefill ONE chunk of one lane's prompt into its allocated blocks.
 
     tokens: (1, C), the next C prompt tokens of ``lane`` from the lane's
-    current ``pos`` (rows past ``n_valid`` are padding). Writes the chunk's
-    K/V into the lane's blocks, advances ``pos`` by ``n_valid``, and returns
-    (logits of the LAST VALID token (1, V), cache). ``pos`` stays on the
-    device: nothing here waits for the card.
+    current ``pos`` (rows past ``n_valid`` are padding). ``lane`` and
+    ``n_valid`` are 0-d int32 device tensors, as the reference traces them
+    (a Python int is filled into one), and no value is read on the host:
+    the step can be captured once per chunk shape and replayed for every
+    lane and valid count. Writes the chunk's K/V into the lane's blocks,
+    advances ``pos`` by ``n_valid``, and returns (logits of the LAST VALID
+    token (1, V), cache).
     """
     _check_family(cfg)
     C = tokens.shape[1]
     dev = tokens.device
-    start = cache["pos"][lane]                               # 0-d tensor
+    lane = _index(lane, dev).reshape(1).long()               # (1,)
+    n_valid = _index(n_valid, dev)
+    start = cache["pos"].index_select(0, lane)[0]            # 0-d tensor
     h = params["embed"]["emb"][tokens]
     offs = torch.arange(C, dtype=torch.int32, device=dev)
     abs_pos = start + offs
     positions = abs_pos[None]                                # (1, C)
-    table = cache["block_tables"][lane]                      # (mb,)
+    table = cache["block_tables"].index_select(0, lane)[0]   # (mb,)
     bs = cache["kp"].shape[3]
     # padded rows may run past the table: clamp the read, as the reference's
     # gather clamps, then redirect their writes to the null block
@@ -648,7 +662,7 @@ def prefill_paged_chunk(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     block_ids = torch.where(offs < n_valid, table[slot],
                             NULL_BLOCK).long()
     rows = (abs_pos % bs).long()
-    kv_len = (start + n_valid)[None]                         # (1,)
+    kv_len = (start + n_valid)[None].to(torch.int32)         # (1,)
     for i, lp in enumerate(params["layers"]):
         a = L.norm_apply(cfg.norm, lp["attn_norm"], h)
         h = h + ATT.paged_prefill_chunk_attention(
@@ -659,9 +673,9 @@ def prefill_paged_chunk(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
         # MoE dropless, so a chunk routes as the whole prompt would when
         # the prompt's capacity never binds (the reduced configs)
         h = _mlp_block(lp, cfg, h)
-    cache["pos"][lane] = kv_len[0]                           # in place
-    last = h[0, max(n_valid - 1, 0)]
-    return _logits(params, cfg, last[None]), cache
+    cache["pos"].index_copy_(0, lane, kv_len)                # in place
+    last = h[0].index_select(0, (n_valid - 1).clamp(min=0).reshape(1).long())
+    return _logits(params, cfg, last), cache
 
 
 def decode_step_paged(params: Params, cfg: ModelConfig, tokens: torch.Tensor,

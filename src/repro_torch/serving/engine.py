@@ -8,6 +8,15 @@ The engine owns the params of one architecture on one device. It runs on
 ``cuda`` unless the caller passes ``device="cpu"``; with no card and no
 explicit device it raises — it never falls back to the host. Generation is
 greedy (argmax) by default; sampling takes a ``torch.Generator``.
+
+``decode``, ``decode_paged`` and ``prefill_chunk`` are the steps the
+reference jits. With ``graphs=True`` (the default) they run through a
+``StepGraphs`` runner: on the card each is captured once per key (step,
+input shapes, cache, tuning) as a CUDA graph and replayed after; on the
+CPU the runner stages the same inputs around an eager call.
+``graphs=False`` calls the model's steps eagerly, the counterpart of
+running the reference under ``jax.disable_jit()``. The whole-prompt
+``prefill`` is eager either way: its shape changes with every prompt.
 """
 from __future__ import annotations
 
@@ -20,6 +29,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.scheduler import kv_blocks_needed
 from repro_torch.models import model as M
+from repro_torch.serving.step_graph import StepGraphs
 
 
 def resolve_device(device=None) -> torch.device:
@@ -43,7 +53,7 @@ class InferenceEngine:
 
     def __init__(self, cfg: ModelConfig, params, *, max_len: int = 512,
                  backend: str = "auto", dtype=torch.float32, device=None,
-                 kv_quant: bool = False):
+                 kv_quant: bool = False, graphs: bool = True):
         self.device = resolve_device(device)
         got = params["embed"]["emb"].device
         if got.type != self.device.type:
@@ -59,6 +69,7 @@ class InferenceEngine:
         self.backend = backend
         self.dtype = dtype
         self.kv_quant = kv_quant      # int8 K/V with per-row scales
+        self.graphs = StepGraphs(self.device) if graphs else None
 
     # ------------------------------------------------------------------ api
     def new_cache(self, batch_size: int):
@@ -75,14 +86,30 @@ class InferenceEngine:
                                   max_blocks_per_lane=mb,
                                   kv_quant=self.kv_quant)
 
-    def prefill_chunk(self, tokens: torch.Tensor, cache, lane: int,
-                      n_valid: int):
-        """Chunked prefill of one lane (see ``model.prefill_paged_chunk``)."""
+    def _run(self, name: str, step, inputs, cache):
+        if self.graphs is None:
+            return step(cache, **inputs)
+        return self.graphs.run(name, step, inputs, cache)
+
+    def prefill_chunk(self, tokens: torch.Tensor, cache, lane, n_valid):
+        """Chunked prefill of one lane (see ``model.prefill_paged_chunk``).
+        ``lane``/``n_valid`` are ints or 0-d int32 device tensors, copied
+        into the step's buffers: one capture per chunk shape, not per lane
+        or valid count."""
+        return self._run("prefill_chunk", self._prefill_chunk,
+                         {"tokens": tokens, "lane": lane, "n_valid": n_valid},
+                         cache)
+
+    def _prefill_chunk(self, cache, tokens, lane, n_valid):
         return M.prefill_paged_chunk(self.params, self.cfg, tokens, cache,
                                      lane=lane, n_valid=n_valid,
                                      backend=self.backend)
 
     def decode_paged(self, tokens: torch.Tensor, cache, live: torch.Tensor):
+        return self._run("decode_paged", self._decode_paged,
+                         {"tokens": tokens, "live": live}, cache)
+
+    def _decode_paged(self, cache, tokens, live):
         return M.decode_step_paged(self.params, self.cfg, tokens, cache,
                                    live=live, backend=self.backend)
 
@@ -94,6 +121,9 @@ class InferenceEngine:
                          backend=self.backend)
 
     def decode(self, tokens: torch.Tensor, cache):
+        return self._run("decode", self._decode, {"tokens": tokens}, cache)
+
+    def _decode(self, cache, tokens):
         return M.decode_step(self.params, self.cfg, tokens, cache,
                              backend=self.backend)
 

@@ -6,6 +6,7 @@ imports no JAX, so it runs on a machine that has only torch:
 
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py -q
 """
+import re
 import sys
 
 import pytest
@@ -1376,9 +1377,207 @@ def test_dry_run_cost_is_the_cards(kind):
     cfg = get_config("smollm-360m").reduced()
     shape = InputShape(f"{kind}_128", 128, 4, kind)
     pred = DR.analyze(cfg, shape)
-    one = DR.analyze(cfg, shape, MeshSpec(("data", "model"), (1, 1)))
-    assert one["flops"] == pred["flops"]
+    one = MeshSpec(("data", "model"), (1, 1))
+    try:
+        DR.check_mesh_torch()
+    except RuntimeError:
+        with pytest.raises(RuntimeError, match=re.escape(torch.__version__)):
+            DR.analyze(cfg, shape, one)
+    else:
+        assert DR.analyze(cfg, shape, one)["flops"] == pred["flops"]
     got = DR.measure_step(cfg, shape, reps=0)
     assert got["flops"] == pred["flops"] > 0
     want = pred["temp_size_in_bytes"]
     assert abs(got["temp_size_in_bytes"] - want) <= 0.02 * want + 64 * 2**20
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,kind,B,S,quant", [
+    ("mistral-7b", "decode", 8, 4096, False),
+    ("mistral-7b", "decode", 8, 4096, True),
+    ("zamba2-1.2b", "train", 2, 512, False),
+    ("whisper-base", "prefill", 4, 448, False)])
+def test_a_1x1_mesh_is_plain_meta_under_the_cards_torch(arch, kind, B, S,
+                                                         quant, monkeypatch):
+    """Phase 11a's four cases at full width: under the card's torch,
+    ``analyze`` on a 1x1 mesh gives the plain-meta numbers, or, on a torch
+    it is not held on, refuses the mesh and names the version."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch.mesh import MeshSpec
+    _need_card()
+    monkeypatch.delenv("REPRO_KV_QUANT", raising=False)
+    if quant:
+        monkeypatch.setenv("REPRO_KV_QUANT", "1")
+    cfg, shape = get_config(arch), InputShape(f"{kind}_{S}", S, B, kind)
+    one = MeshSpec(("data", "model"), (1, 1))
+    try:
+        DR.check_mesh_torch()
+    except RuntimeError:
+        with pytest.raises(RuntimeError, match=re.escape(torch.__version__)):
+            DR.analyze(cfg, shape, one)
+        return
+    plain, mesh = DR.analyze(cfg, shape), DR.analyze(cfg, shape, one)
+    for k in ("flops", "bytes_accessed", "peak_bytes", "temp_size_in_bytes",
+              "output_size_in_bytes", "argument_size_in_bytes"):
+        assert mesh[k] == plain[k], k
+
+
+# ------------------------------------------------ serve steps as CUDA graphs
+GRAPH_ARCHS = ["smollm-360m", "phi3.5-moe-42b-a6.6b", "qwen2-vl-7b",
+               "mamba2-130m", "zamba2-1.2b", "whisper-base"]
+
+
+def _graph_engines(arch, **kw):
+    """A reduced ``arch`` (float32, weights from seed 5) behind two engines
+    on the card: replayed steps (the default) and eager ones."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.serving.engine import InferenceEngine
+    cfg = get_config(arch).reduced()
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(5),
+                           torch.float32, "cuda")
+    return {g: InferenceEngine(cfg, params, max_len=64, device="cuda",
+                               graphs=g, **kw) for g in (True, False)}
+
+
+def _graph_batch(cfg, B=2, S=9):
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                                     device="cuda", dtype=torch.int32)}
+    if cfg.family in ("vlm", "audio"):
+        key = "vision" if cfg.family == "vlm" else "frames"
+        n = cfg.num_vision_tokens if key == "vision" else cfg.encoder_seq_len
+        batch[key] = torch.randn((B, n, cfg.d_model), generator=gen,
+                                 device="cuda")
+    return batch
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", GRAPH_ARCHS)
+def test_decode_replays_match_the_eager_step_on_card(arch):
+    """Prefill, then 6 decode steps: the replayed step's logits within 1e-3
+    of the eager step's, the same greedy tokens; one capture, then
+    replays, each counted as the kernels' launches of one step."""
+    _need_card()
+    from repro_torch.serving import step_graph as SGR
+    eng = _graph_engines(arch)
+    batch = _graph_batch(eng[True].cfg)
+    logits, caches = {}, {}
+    for g, e in eng.items():
+        logits[g], caches[g] = e.prefill(batch)
+    grown = []
+    for _ in range(6):
+        tok = logits[False].argmax(-1).to(torch.int32)[:, None]
+        for g, e in eng.items():
+            before = [fn.launches for fn in SGR.COUNTERS]
+            logits[g], caches[g] = e.decode(tok, caches[g])
+            torch.cuda.synchronize()
+            grown.append((g, [fn.launches - b
+                              for fn, b in zip(SGR.COUNTERS, before)]))
+        assert (logits[True] - logits[False]).abs().max().item() <= 1e-3
+        assert torch.equal(logits[True].argmax(-1), logits[False].argmax(-1))
+    runner = eng[True].graphs
+    assert (runner.captures, runner.replays) == (1, 5)
+    eager = [n for g, n in grown if not g]
+    assert all(n == eager[0] for n in eager)
+    assert all(n == eager[0] for g, n in grown if g)
+    # mamba2's decode step is plain torch (no kernel); the others run K2
+    assert (sum(eager[0]) > 0) == (arch != "mamba2-130m")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv_quant,impl", [(False, None), (True, "gather"),
+                                           (True, "fused")])
+@pytest.mark.parametrize("arch", ["smollm-360m", "phi3.5-moe-42b-a6.6b"])
+def test_paged_batcher_replays_match_the_eager_steps_on_card(arch, kv_quant,
+                                                             impl):
+    """The paged batcher on replayed chunk and decode steps gives the eager
+    batcher's tokens; with an int8 cache under both read paths (K2 after a
+    gather, or K4)."""
+    _need_card()
+    import numpy as np
+    from repro_torch.kernels import autotune as AT
+    from repro_torch.serving.batching import PagedContinuousBatcher, Request
+    eng = _graph_engines(arch, kv_quant=kv_quant)
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(0, eng[True].cfg.vocab_size, size=m)
+               for m in (11, 19, 6)]
+    cache = None
+    if impl == "fused":
+        bucket = AT.shape_bucket("paged_decode_quant", b=2, c=16 * 4)
+        cache = AT.AutotuneCache("tests", "cuda", entries=[AT.TunedEntry(
+            kernel="paged_decode_quant", backend="cuda", bucket=bucket,
+            params={"impl": "fused"}, t_s=1.0, t_default_s=1.0,
+            noise_frac=0.0, flops=0.0, bytes=0.0, ctx=0.0)])
+    prev = AT.install(cache)
+    k4 = DA.paged_decode_attention_int8.launches
+    try:
+        out = {}
+        for g, e in eng.items():
+            cb = PagedContinuousBatcher(e, slots=2, num_blocks=24,
+                                        block_size=4, chunk=8)
+            reqs = [Request(i, p, max_new_tokens=6)
+                    for i, p in enumerate(prompts)]
+            for r in reqs:
+                cb.submit(r)
+            cb.run()
+            out[g] = [r.out_tokens for r in reqs]
+    finally:
+        AT.install(prev)
+    assert out[True] == out[False]
+    assert eng[True].graphs.captures == 2 and eng[True].graphs.replays > 10
+    assert (DA.paged_decode_attention_int8.launches > k4) == (impl == "fused")
+
+
+@pytest.mark.gpu
+def test_a_new_cache_is_a_new_capture_on_card():
+    """Two dense batchers on one engine: a capture each (the graph reads
+    its cache at its addresses); generate captures per call."""
+    _need_card()
+    import numpy as np
+    from repro_torch.serving.batching import ContinuousBatcher, Request
+    eng = _graph_engines("smollm-360m")[True]
+    for _ in range(2):
+        cb = ContinuousBatcher(eng, slots=2)
+        for i, m in enumerate((7, 12)):
+            cb.submit(Request(i, np.arange(m) % 50, max_new_tokens=4))
+        cb.run()
+    assert eng.graphs.captures == 2
+    eng.generate(_graph_batch(eng.cfg, B=1), 4)
+    assert eng.graphs.captures == 3
+
+
+@pytest.mark.gpu
+def test_generate_captures_again_once_every_graph_died_on_card():
+    """An engine that serves only through ``generate`` (the router's
+    engine-only path): each call's cache dies after it, its graph with it,
+    and the next call captures into a new pool."""
+    _need_card()
+    import gc
+    eng = _graph_engines("smollm-360m")[True]
+    batch = _graph_batch(eng.cfg, B=1)
+    want = _graph_engines("smollm-360m")[False].generate(batch, 5).tokens
+    for _ in range(3):
+        assert (eng.generate(batch, 5).tokens == want).all()
+        gc.collect()
+    assert eng.graphs.captures == 3 and len(eng.graphs) == 1
+
+
+@pytest.mark.gpu
+def test_a_capture_that_reads_the_host_raises_on_card():
+    """A step that reads a value on the host cannot be captured: the runner
+    raises and does not run it eagerly instead."""
+    _need_card()
+    from repro_torch.serving import step_graph as SGR
+
+    def host_read(cache, tokens):
+        n = int(cache["pos"].sum().item())
+        return tokens.float() * n, cache
+    cache = {"pos": torch.ones(2, dtype=torch.int32, device="cuda")}
+    tok = torch.zeros((2, 1), dtype=torch.int32, device="cuda")
+    with pytest.raises(RuntimeError):
+        SGR.StepGraphs("cuda").run("host_read", host_read, {"tokens": tok},
+                                   cache)
+    torch.cuda.synchronize()
