@@ -245,6 +245,30 @@ Phases, each printing its own lines; any failure exits non-zero:
                replayed, replayed, eager in one call: the ticks, the
                captures and the replays; tokens and ``fleet_report()``
                bookings identical in all four turns, or the phase fails.
+  14. price  — the card priced from its own kernel timings, as the
+               reference calibrates the hardware it runs on
+               (``repro_torch.launch.calibrate``): 14a. power.draw at rest
+               (nvidia-smi every 100 ms for about 1 s, the card idle) and
+               while a bf16 K1 serving call runs back to back, beside
+               ``H100_SXM``'s wattages (no gate); 14b. the reference's
+               recipe, ``run_measured`` (``kernel_phase_samples(iters=10)``
+               at its defaults: float32, 4/2 heads of 64) fitted to
+               ``H100_SXM``; 14c. the serving fit: bf16 at mistral-7b's
+               heads (32/8, D 128), the same lengths, paged int8 contexts
+               256/1024/4096 and KV migrations of 8 and 64 blocks, the SSD
+               cells at mamba2-130m's H 24, P 64, N 128, its artifact under
+               build/ read back equal by ``CalibratedOracle.load``; each
+               fit fails at a rel-RMSE of 0.35 or more and prints every
+               constant and each sample's residual; 14d. phase 3c's cache
+               through ``TableOracle.from_autotune(llama2-7b, H100_SXM)``,
+               every entry re-measured at seed + 1 with its winner pinned
+               (the int8 serving bucket at mistral-7b's heads), the
+               re-measured rel-RMSE below 0.35 or the phase fails; 14e.
+               ``price_fleet`` with 14c's calibration: the headline rows
+               and both axes' optimal thresholds, M1-Pro + this card
+               beside the paper's hand-tuned M1-Pro + A100 node. Every
+               kernel's launches are counted from 0 over 14b, 14c and
+               14d, and each step's kernels must have launched.
 
 Every serve phase collects garbage and restarts the peak memory count
 first, and prints the bytes still allocated. Phases 5, 6 and 9 run with no
@@ -3472,6 +3496,173 @@ def phase_graphs(torch, card):
     say(f"  13 phase time {time.perf_counter() - t0:.3f} s card={card}")
 
 
+# --------------------------------------------------------------- phase 14
+PRICE_DIR = ROOT / "build" / "calibration_torch"
+# 14c's cells: mistral-7b's attention heads, mamba2-130m's SSD heads
+PRICE_SSD = dict(heads=24, ssm_head_dim=64, state_dim=128)
+
+
+def _power_at_rest(seconds=1.0):
+    """(median, max) power.draw in W that nvidia-smi samples every 100 ms
+    for ``seconds`` while nothing runs on the card."""
+    smi = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=power.draw",
+         "--format=csv,noheader,nounits", "-lms", "100"],
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    try:
+        time.sleep(seconds)
+    finally:
+        smi.terminate()
+        out, _ = smi.communicate(timeout=30)
+    watts = []
+    for line in out.splitlines():
+        try:
+            watts.append(float(line))
+        except ValueError:
+            continue
+    if not watts:
+        return float("nan"), float("nan")
+    watts.sort()
+    return watts[len(watts) // 2], watts[-1]
+
+
+def _counted(label, needed, fn):
+    """Runs ``fn`` with every kernel's count set to 0 just before and read
+    just after; fails unless each kernel in ``needed`` launched."""
+    from repro_torch.serving.step_graph import COUNTERS
+    kernels = {k.__name__: k for k in COUNTERS}
+    for k in kernels.values():
+        k.launches = 0
+    out = fn()
+    moved = {name: k.launches for name, k in kernels.items()}
+    say(f"  {label} launches: {moved}")
+    missing = [k for k in needed if moved[k] <= 0]
+    if missing:
+        fail(f"phase {label}: {missing} not launched")
+    return out
+
+
+def _fit_lines(label, profile, cal, samples, card):
+    """Prints a fit's constants and each sample's residual."""
+    from repro_torch.core.pricing import _predict
+    from repro_torch.launch.calibrate import MEASURED_REL_RMSE_BOUND
+    pred = _predict(samples, profile, cal.compute_eff, cal.mem_eff,
+                    cal.sat_ctx, cal.overhead_s)
+    for s, p in zip(samples, pred):
+        say(f"  {label} {s.kernel:18s} flops={s.flops:.4e} "
+            f"bytes={s.bytes:.4e} ctx={s.ctx:6.0f} t_s={s.t_s:.4e} "
+            f"noise_frac={s.noise_frac:.3f} pred_s={p:.4e} "
+            f"residual={(p - s.t_s) / s.t_s:+.4f}")
+    say(f"  {label} fit {profile.name}: compute_eff={cal.compute_eff!r} "
+        f"mem_eff={cal.mem_eff!r} sat_ctx={cal.sat_ctx!r} "
+        f"overhead_s={cal.overhead_s!r} fit_rel_rmse={cal.fit_rel_rmse!r} "
+        f"(bound {MEASURED_REL_RMSE_BOUND}) n_samples={cal.n_samples} "
+        f"card={card}")
+    if not cal.fit_rel_rmse < MEASURED_REL_RMSE_BOUND:
+        fail(f"phase {label}: fit rel-RMSE {cal.fit_rel_rmse:.4f} not below "
+             f"{MEASURED_REL_RMSE_BOUND}")
+
+
+def _serving_samples(torch):
+    """14c's sample set: bf16 at mistral-7b's attention heads, the
+    reference's lengths, int8 paged contexts and KV migrations, and the
+    SSD cells at mamba2-130m's heads."""
+    from repro_torch.kernels.timing import kernel_phase_samples
+    kw = dict(backend="cuda", iters=10, seed=SEED, dtype=torch.bfloat16)
+    return (kernel_phase_samples(ssm_lens=(), paged_ctxs=(256, 1024, 4096),
+                                 migrate_blocks=(8, 64), heads=HQ,
+                                 kv_heads=HKV, head_dim=D, **kw)
+            + kernel_phase_samples(prefill_lens=(), decode_ctxs=(),
+                                   **PRICE_SSD, **kw))
+
+
+def phase_price(torch, card):
+    """Phase 14: the card priced from its own kernel timings."""
+    from repro_torch.core.pricing import (Calibration, CalibratedOracle,
+                                          KernelSample, fit_calibration)
+    from repro_torch.kernels import autotune as AT
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.launch import calibrate as C
+    say("== phase 14: price — the card fitted from its own kernel timings "
+        "(measure -> fit -> price), the paper's fleet priced with it")
+    t0 = time.perf_counter()
+    p = C.H100_SXM
+
+    # 14a. power at rest and under a bf16 K1 serving call
+    torch.cuda.synchronize()
+    time.sleep(1.0)
+    rest_med, rest_max = _power_at_rest()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    q = _rand(torch, gen, (1, HQ, M_CAP, D), torch.bfloat16)
+    k = _rand(torch, gen, (1, HKV, M_CAP, D), torch.bfloat16)
+    v = _rand(torch, gen, (1, HKV, M_CAP, D), torch.bfloat16)
+    mhz, load_max = _sm_clock_during(
+        torch, lambda: FA.flash_attention(q, k, v, causal=True))
+    del q, k, v
+    say(f"  14a power.draw at rest: median {rest_med} W, max {rest_max} W; "
+        f"under K1 bf16 (B 1, {HQ}/{HKV} heads, S {M_CAP}, D {D}) back to "
+        f"back: max {load_max} W at a median SM clock of {mhz} MHz; "
+        f"{p.name}: power_idle_w={p.power_idle_w} "
+        f"power_peak_w={p.power_peak_w} card={card}")
+
+    # 14b. the reference's recipe, through the entry point
+    f32_dir = PRICE_DIR / "f32"
+    _counted("14b", ("flash_attention", "decode_attention", "ssd_scan"),
+             lambda: C.run_measured(None, iters=10, out_dir=str(f32_dir),
+                                    device="cuda"))
+    art = json.loads((f32_dir / f"{p.name}.json").read_text())
+    _fit_lines("14b", p, Calibration(**art["calibrations"][0]),
+               [KernelSample(**s) for s in art["samples"]], card)
+
+    # 14c. the serving fit, the one that prices
+    samples = _counted("14c", ("flash_attention", "decode_attention",
+                               "ssd_scan"),
+                       lambda: _serving_samples(torch))
+    cal = fit_calibration(p, samples)
+    path = C._write_artifact(p, cal, samples, "measured",
+                             str(PRICE_DIR / "bf16"))
+    _fit_lines("14c", p, cal, samples, card)
+    back = CalibratedOracle.load(path).calibrations.get(p.name)
+    say(f"  14c artifact {path}: read back equal {back == cal}")
+    if back != cal:
+        fail("phase 14c: the calibration artifact does not read back equal")
+
+    # 14d. the oracle refresh over phase 3c's cache
+    cache = AT.AutotuneCache.load(AT.cache_path("h100", "cuda"))
+    serving_key = AT.cache_key("paged_decode_quant", "cuda", AT.shape_bucket(
+        "paged_decode_quant", b=4, c=MAX_LEN))
+    fused = any(e.params.get("impl") == "fused"
+                for e in cache.entries.values())
+    needed = ("flash_attention", "decode_attention", "ssd_scan") + (
+        ("paged_decode_attention_int8",) if fused else ())
+    refresh = _counted("14d", needed, lambda: C.oracle_refresh(
+        cache, p, model="llama2-7b", seed=SEED,
+        dims={serving_key: dict(heads=HQ, kv_heads=HKV, head_dim=D)}))
+    for r in refresh["remeasured"]:
+        say(f"  14d {r['key']:36s} t_s={r['t_s']:.4e} "
+            f"pred_s={r['pred_s']:.4e} "
+            f"residual={(r['pred_s'] - r['t_s']) / r['t_s']:+.4f}")
+    say(f"  14d from_autotune(llama2-7b, {p.name}): compute_eff="
+        f"{refresh['compute_eff']!r} mem_eff={refresh['mem_eff']!r} "
+        f"sat_ctx={refresh['sat_ctx']!r} overhead_s={refresh['overhead_s']!r}"
+        f" fit_rel_rmse={refresh['fit_rel_rmse']:.4f} remeasured_rel_rmse="
+        f"{refresh['remeasured_rel_rmse']:.4f} (bound {refresh['bound']}) "
+        f"n_samples={refresh['n_samples']} card={card}")
+    if not refresh["remeasured_rel_rmse"] < refresh["bound"]:
+        fail(f"phase 14d: re-measured rel-RMSE "
+             f"{refresh['remeasured_rel_rmse']:.4f} not below "
+             f"{refresh['bound']}")
+
+    # 14e. the paper's analysis with this card as the performance pool
+    for fp in C.price_fleet(cal):
+        origin = (f"priced from this card's calibration ({card})"
+                  if fp.pricing.startswith("calibrated") else
+                  "the paper's hand-tuned constants")
+        for line in fp.lines():
+            say(f"  14e {line} — {origin}")
+    say(f"  14 phase time {time.perf_counter() - t0:.3f} s card={card}")
+
+
 def main() -> None:
     if not (ROOT / "src" / "repro_torch" / "kernels").is_dir():
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it from "
@@ -3505,6 +3696,7 @@ def main() -> None:
     phase_dryrun(torch, card)
     phase_dryrun_cost(torch, card)
     phase_graphs(torch, card)
+    phase_price(torch, card)
     for kname in ("flash_attention_bwd", f"flash_attention_bwd@{ZAMBA}",
                   "ssd_scan_bwd", f"ssd_scan_bwd@{ZAMBA}"):
         errs[kname] = bwd_worst[kname]

@@ -148,11 +148,12 @@ def paged_decode_attention_quant(q, k_pool, v_pool, k_scale_pool,
         raise ValueError(f"unknown quantized decode impl {impl!r}; "
                          f"expected one of {QUANT_IMPLS}")
     if impl == "gather":
-        k = _ref.dequantize_kv(_ref.gather_paged_kv(k_pool, block_tables),
-                               _ref.gather_paged_kv(k_scale_pool, block_tables),
+        tables = block_tables.long()             # one index cast for four
+        k = _ref.dequantize_kv(_ref.gather_paged_kv(k_pool, tables),
+                               _ref.gather_paged_kv(k_scale_pool, tables),
                                q.dtype)
-        v = _ref.dequantize_kv(_ref.gather_paged_kv(v_pool, block_tables),
-                               _ref.gather_paged_kv(v_scale_pool, block_tables),
+        v = _ref.dequantize_kv(_ref.gather_paged_kv(v_pool, tables),
+                               _ref.gather_paged_kv(v_scale_pool, tables),
                                q.dtype)
         return decode_attention(q, k, v, kv_len, window=window,
                                 softcap=softcap, backend=backend)

@@ -155,8 +155,13 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
 
 def dequantize_kv(q: torch.Tensor, scale: torch.Tensor,
                   dtype=torch.float32) -> torch.Tensor:
-    """Inverse of the models' symmetric per-row int8 KV quantization."""
-    return (q.float() * scale).to(dtype)
+    """Inverse of the models' symmetric per-row int8 KV quantization:
+    ``(q.float() * scale).to(dtype)`` bit for bit, in one elementwise pass
+    (int8 times float32 is computed in float32 and rounded once to the
+    output's dtype)."""
+    out = torch.empty(torch.broadcast_shapes(q.shape, scale.shape),
+                      dtype=dtype, device=q.device)
+    return torch.mul(q, scale, out=out)
 
 
 def paged_decode_attention_quant(q: torch.Tensor, k_pool: torch.Tensor,

@@ -396,6 +396,8 @@ def test_cuda_timing_needs_a_card():
     ("decode_attention", {"b": 2, "c": 64}, None),
     ("paged_decode_quant", {"b": 2, "c": 64}, {"impl": "gather"}),
     ("paged_decode_quant", {"b": 2, "c": 64}, {"impl": "fused"}),
+    ("kv_migrate", {"blocks": 1}, None),
+    ("kv_migrate", {"blocks": 8}, None),
     ("ssm_scan", {"s": 64}, {"chunk": 32})])
 def test_timer_work_counts_are_the_reference_timers(kernel, shape, params):
     """The same kernel kinds and analytic work counts as the reference's

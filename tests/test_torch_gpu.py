@@ -1581,3 +1581,44 @@ def test_a_capture_that_reads_the_host_raises_on_card():
         SGR.StepGraphs("cuda").run("host_read", host_read, {"tokens": tok},
                                    cache)
     torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_phase_samples_time_the_kernels_on_card(dtype):
+    """``kernel_phase_samples(backend="cuda")``: positive times, and the
+    plain run's work counts less what only the plain path does (it
+    materializes the float32 scores and computes the full S x S product
+    before masking)."""
+    _need_card()
+    from repro_torch.kernels import timing
+    kw = dict(prefill_lens=(128,), decode_ctxs=(128,), paged_ctxs=(64,),
+              migrate_blocks=(2,), ssm_lens=(128,), iters=2, dtype=dtype)
+    got = timing.kernel_phase_samples(backend="cuda", **kw)
+    plain = timing.kernel_phase_samples(backend="ref", **kw)
+    hq, dh = 4, 64
+    scores = {"flash_attention": lambda s: 4.0 * 3.0 * hq * s.ctx * s.ctx,
+              "decode_attention": lambda s: 4.0 * 3.0 * hq * s.ctx,
+              "paged_decode_quant": lambda s: 4.0 * 3.0 * hq * s.ctx}
+    assert [s.kernel for s in got] == [s.kernel for s in plain]
+    for g, r in zip(got, plain):
+        assert g.t_s > 0 and g.noise_frac >= 0.0
+        flops = r.flops / 2 if g.kernel == "flash_attention" else r.flops
+        extra = scores.get(g.kernel, lambda s: 0.0)(r)
+        assert (g.flops, g.bytes, g.ctx) == (flops, r.bytes - extra, r.ctx)
+    assert got[0].flops == 2.0 * hq * 128 * 128 * dh
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dequantize_is_one_pass_bit_for_bit_on_card(dtype):
+    """The int8 read's dequantization in one elementwise pass equals the
+    float32 product cast to the read's dtype, bit for bit."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    q8 = torch.randint(-127, 128, (4, 8, 96, 128), generator=gen,
+                       device="cuda").to(torch.int8)
+    sc = torch.rand((4, 8, 96, 1), generator=gen, device="cuda") * 0.02
+    got = ref.dequantize_kv(q8, sc, dtype)
+    assert got.dtype == dtype
+    assert torch.equal(got, (q8.float() * sc).to(dtype))
