@@ -14,6 +14,11 @@ Both keep one batched host sync per tick: the tokens a tick emits come to
 the host together, while the next tick's input stays on the device.
 Host-to-device copies go through pinned memory without a stream sync.
 
+Each ``step()`` appends a ``trace.Tick`` to ``trace.TICKS`` and stamps the
+requests' ``times`` (queued, admitted, each token after its sync, done);
+under a ``torch.profiler`` session it opens the ``tick.*`` and ``lane.*``
+spans (``serving/trace.py``).
+
 KV handoff between two paged pools (disaggregated prefill and decode): a
 held request (``Request.hold``) prefills on one batcher and never decodes
 there; ``adopt_lane`` on another copies its prompt blocks across with
@@ -30,7 +35,9 @@ import torch
 
 from repro_torch.core.scheduler import kv_blocks_needed
 from repro_torch.models.model import NULL_BLOCK
+from repro_torch.serving import trace
 from repro_torch.serving.engine import InferenceEngine
+from repro_torch.serving.trace import RequestTimes, clock, span
 
 
 @dataclass
@@ -42,6 +49,7 @@ class Request:
     done: bool = False
     eos_id: Optional[int] = None    # stop early when this token is emitted
     hold: bool = False              # prefill only; decode waits for a handoff
+    times: RequestTimes = field(default_factory=RequestTimes)  # trace stamps
 
 
 def _to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -66,8 +74,15 @@ class _BatcherBase:
         self.active: List[Optional[Request]] = [None] * slots
         self._last_tok = torch.zeros((slots,), dtype=torch.int32,
                                      device=self.device)
+        self.pool = ""              # the tick log's name for it (the router's)
+        # the current tick's record: host sync seconds, admissions, and
+        # whether admission stopped on memory
+        self._sync_s = 0.0
+        self._admitted = 0
+        self._blocked = False
 
     def submit(self, req: Request) -> None:
+        req.times.queued = clock()
         self.queue.append(req)
 
     @property
@@ -87,13 +102,13 @@ class _BatcherBase:
         device, then ONE host sync for all of them."""
         for i, t in zip(lanes, tok_devs):
             self._last_tok[i] = t                         # in place, on device
-        # the admission's one host sync  # repro-lint: allow[torch-host-sync]
-        toks = torch.stack(tok_devs).cpu().numpy()
-        for i, tok in zip(lanes, toks):
-            req = self.active[i]
-            req.out_tokens.append(int(tok))
-            if self._finished(req):                       # eos on first token
-                self._retire(i)
+        t0 = clock()
+        with span("tick.sync"):
+            # one sync per admission  # repro-lint: allow[torch-host-sync]
+            toks = torch.stack(tok_devs).cpu().numpy()
+        now = clock()
+        self._sync_s += now - t0
+        self._book(lanes, toks, now)          # eos on a first token retires
 
     def _emit(self, logits: torch.Tensor, live: List[int]) -> None:
         """The argmax stays on the device as next tick's input (dead lanes
@@ -101,18 +116,40 @@ class _BatcherBase:
         tick for the bookkeeping."""
         tok_dev = torch.argmax(logits, dim=-1).to(torch.int32)
         self._last_tok = tok_dev
-        # the tick's one host sync  # repro-lint: allow[torch-host-sync]
-        toks = tok_dev.cpu().numpy()
-        for i in live:
-            req = self.active[i]
-            req.out_tokens.append(int(toks[i]))
-            if self._finished(req):
-                self._retire(i)
+        t0 = clock()
+        with span("tick.sync"):
+            # one sync per tick  # repro-lint: allow[torch-host-sync]
+            toks = tok_dev.cpu().numpy()
+        now = clock()
+        self._sync_s += now - t0
+        self._book(live, toks[live], now)
+
+    def _book(self, lanes: List[int], toks: np.ndarray, now: float) -> None:
+        """Each lane's token (on the host), stamped ``now``, the sync that
+        brought it; a finished request retires."""
+        with span("tick.book"):
+            for i, tok in zip(lanes, toks):
+                req = self.active[i]
+                req.out_tokens.append(int(tok))
+                req.times.emitted.append(now)
+                if self._finished(req):
+                    self._retire(i)
+                    req.times.done = clock()
 
     def _retire(self, i: int) -> None:
         raise NotImplementedError
 
     def step(self) -> None:
+        """One scheduler tick (``_tick``), logged in ``trace.TICKS``."""
+        start = clock()
+        self._sync_s, self._admitted, self._blocked = 0.0, 0, False
+        lanes = self._tick()
+        trace.TICKS.append(trace.Tick(self.pool, start, clock(), self._sync_s,
+                                      self._admitted, self._blocked, lanes,
+                                      len(self.queue)))
+
+    def _tick(self) -> int:
+        """The tick's work; returns the lanes it decoded (0: no decode)."""
         raise NotImplementedError
 
     def run(self, max_ticks: int = 10_000) -> None:
@@ -142,29 +179,38 @@ class ContinuousBatcher(_BatcherBase):
         for i in range(self.slots):
             if self.active[i] is None and self.queue:
                 req = self.queue.pop(0)
+                req.times.admitted = clock()
+                self._admitted += 1
                 self.active[i] = req
                 # per-request prefill into a fresh single-lane cache, then
                 # splice the lane into the batched cache
-                lane_cache = self.engine.new_cache(1)
-                tokens = _to_device(np.asarray(req.tokens, np.int32)[None],
-                                    self.device)
-                logits, lane_cache = self.engine.prefill({"tokens": tokens},
-                                                         lane_cache)
-                tok_devs.append(torch.argmax(logits, dim=-1)[0].to(torch.int32))
+                with span("lane.cache"):
+                    lane_cache = self.engine.new_cache(1)
+                with span("lane.prefill"):
+                    tokens = _to_device(np.asarray(req.tokens, np.int32)[None],
+                                        self.device)
+                    logits, lane_cache = self.engine.prefill(
+                        {"tokens": tokens}, lane_cache)
+                    tok_devs.append(
+                        torch.argmax(logits, dim=-1)[0].to(torch.int32))
                 admitted.append(i)
-                _splice_lane(self.cache, lane_cache, i)
+                with span("lane.splice"):
+                    _splice_lane(self.cache, lane_cache, i)
         if admitted:
             self._seed_lanes(admitted, tok_devs)
 
-    def step(self) -> None:
-        """One scheduler tick: refill empty lanes, one batched decode step."""
-        self._fill_slots()
-        live = [i for i, r in enumerate(self.active) if r is not None]
-        if not live:
-            return
-        logits, self.cache = self.engine.decode(self._last_tok[:, None],
-                                                self.cache)
+    def _tick(self) -> int:
+        """Refill empty lanes, then one batched decode step."""
+        with span("tick.fill"):
+            self._fill_slots()
+        with span("tick.decode"):
+            live = [i for i, r in enumerate(self.active) if r is not None]
+            if not live:
+                return 0
+            logits, self.cache = self.engine.decode(self._last_tok[:, None],
+                                                    self.cache)
         self._emit(logits, live)
+        return len(live)
 
 
 # ===========================================================================
@@ -371,8 +417,12 @@ class PagedContinuousBatcher(_BatcherBase):
             if fresh is None:                     # memory-bound: head waits
                 if shared:
                     self.allocator.decref(shared)
+                req.times.blocked += 1
+                self._blocked = True
                 break
             self.queue.pop(0)
+            req.times.admitted = clock()
+            self._admitted += 1
             self.active[i] = req
             blocks = shared + fresh
             # the whole prompt goes to the device once, padded to chunks, so
@@ -433,21 +483,25 @@ class PagedContinuousBatcher(_BatcherBase):
                 if r is not None and not r.hold
                 and self._lane[i].prefilled >= len(r.tokens)]
 
-    def step(self) -> None:
-        """One tick: admit, one prefill chunk per filling lane, one batched
-        decode step for lanes with complete prompts. Decode lanes advance
-        even while another lane's long prompt is mid-prefill."""
-        self._admit()
-        self._prefill_tick()
-        live = self._decode_lanes()
-        if not live:
-            return
-        mask = np.zeros((self.slots,), bool)
-        mask[live] = True
-        logits, self.cache = self.engine.decode_paged(
-            self._last_tok[:, None], self.cache,
-            _to_device(mask, self.device))
+    def _tick(self) -> int:
+        """Admit, one prefill chunk per filling lane, one batched decode
+        step for lanes with complete prompts. Decode lanes advance even
+        while another lane's long prompt is mid-prefill."""
+        with span("tick.admit"):
+            self._admit()
+        with span("tick.prefill"):
+            self._prefill_tick()
+        with span("tick.decode"):
+            live = self._decode_lanes()
+            if not live:
+                return 0
+            mask = np.zeros((self.slots,), bool)
+            mask[live] = True
+            logits, self.cache = self.engine.decode_paged(
+                self._last_tok[:, None], self.cache,
+                _to_device(mask, self.device))
         self._emit(logits, live)
+        return len(live)
 
     def _retire(self, i: int) -> None:
         self.active[i].done = True

@@ -21,6 +21,11 @@ pool and decodes on another: when both are paged batchers with equal block
 sizes the request is held after prefill and ``drain()`` hands its KV blocks
 to the decode pool (``adopt_lane``); otherwise it runs wholly on the prefill
 pool and keeps the split booking.
+
+``submit`` stamps a batcher-executed request's ``times`` (arrived, routed,
+booked) and, under a ``torch.profiler`` session, opens the
+``router.snapshot``, ``router.dispatch``, ``router.book`` and
+``router.enqueue`` spans (``serving/trace.py``).
 """
 from __future__ import annotations
 
@@ -46,6 +51,7 @@ from repro_torch.core.workload import Query
 from repro_torch.serving.batching import (ContinuousBatcher,
                                           PagedContinuousBatcher, Request)
 from repro_torch.serving.engine import InferenceEngine
+from repro_torch.serving.trace import RequestTimes, clock, span
 
 POLICIES = ("threshold", "cost_optimal", "capacity_aware", "disaggregated")
 
@@ -138,15 +144,18 @@ class FleetRouter:
         ``paged=True`` attaches ``PagedContinuousBatcher`` instances; their
         block occupancy is then exported to schedulers via the
         ``PoolSnapshot`` free/total-block fields. Each pool gets its own
-        batcher (and KV pool), even where pools share one engine."""
+        batcher (and KV pool), even where pools share one engine, named
+        after its pool in the tick log."""
         for name, eng in self.engines.items():
             if paged:
-                self.batchers[name] = PagedContinuousBatcher(
+                cb = PagedContinuousBatcher(
                     eng, slots=slots, num_blocks=num_blocks,
                     block_size=block_size, chunk=chunk,
                     prefix_sharing=prefix_sharing)
             else:
-                self.batchers[name] = ContinuousBatcher(eng, slots=slots)
+                cb = ContinuousBatcher(eng, slots=slots)
+            cb.pool = name
+            self.batchers[name] = cb
 
     def _fleet_state(self, now: float = 0.0) -> FleetState:
         """Observable per-pool queue state for the dispatch API: queued
@@ -199,40 +208,50 @@ class FleetRouter:
         return FleetState(time_s=now, pools=snaps)
 
     # --------------------------------------------------------------- routing
-    def route(self, m: int, expected_n: int, arrival_s: float = 0.0) -> str:
+    def route(self, m: int, expected_n: int, arrival_s: float = 0.0,
+              times: Optional[RequestTimes] = None) -> str:
         """Pick a pool for an (m, n) request; book it at ``expected_n`` in
         both the expected and the actual totals (execution reconciles the
-        actual ones to the emitted token count)."""
+        actual ones to the emitted token count). ``times`` takes the
+        ``routed`` and ``booked`` stamps."""
         q = Query(m, expected_n, arrival_s)
         # snapshot only when the policy reads it
         fleet = None
         if self.batchers and type(self.scheduler).dispatch is not Scheduler.dispatch:
-            fleet = self._fleet_state(arrival_s)
-        plan = resolve_plan(self.scheduler.dispatch(q, fleet), q, self._name_of)
-        self.scheduler.observe(q, plan)
-        self._last_split = None
-        if isinstance(plan, DeferPlan):
-            # live serving cannot time-shift a request: the inner placement
-            # runs at once (the defer window is a simulation / global
-            # dispatch concern)
-            plan = plan.inner
-        if isinstance(plan, SplitPlan):
-            name_a = self._name_of[plan.pool_prefill]
-            self._last_split = self._name_of[plan.pool_decode]
-            bs = getattr(self.batchers.get(name_a), "block_size", 0)
-        else:
-            name_a = self._name_of[plan.pool]
-            bs = 0
-        for b in route_bookings(self.model, plan, q, self._system_of,
-                                block_size=bs):
-            st = self.stats[self._name_of[b.pool]]
-            st.queries += b.queries
-            st.energy_j += b.energy_j
-            st.runtime_s += b.runtime_s
-            st.tokens += b.tokens
-            st.expected_energy_j += b.energy_j
-            st.expected_runtime_s += b.runtime_s
-            st.expected_tokens += b.tokens
+            with span("router.snapshot"):
+                fleet = self._fleet_state(arrival_s)
+        with span("router.dispatch"):
+            plan = resolve_plan(self.scheduler.dispatch(q, fleet), q,
+                                self._name_of)
+            self.scheduler.observe(q, plan)
+            self._last_split = None
+            if isinstance(plan, DeferPlan):
+                # live serving cannot time-shift a request: the inner
+                # placement runs at once (the defer window is a simulation
+                # / global dispatch concern)
+                plan = plan.inner
+            if isinstance(plan, SplitPlan):
+                name_a = self._name_of[plan.pool_prefill]
+                self._last_split = self._name_of[plan.pool_decode]
+                bs = getattr(self.batchers.get(name_a), "block_size", 0)
+            else:
+                name_a = self._name_of[plan.pool]
+                bs = 0
+        if times is not None:
+            times.routed = clock()
+        with span("router.book"):
+            for b in route_bookings(self.model, plan, q, self._system_of,
+                                    block_size=bs):
+                st = self.stats[self._name_of[b.pool]]
+                st.queries += b.queries
+                st.energy_j += b.energy_j
+                st.runtime_s += b.runtime_s
+                st.tokens += b.tokens
+                st.expected_energy_j += b.energy_j
+                st.expected_runtime_s += b.runtime_s
+                st.expected_tokens += b.tokens
+        if times is not None:
+            times.booked = clock()
         return name_a
 
     def _reconcile_split(self, name_a: str, name_b: str, m: int,
@@ -275,31 +294,33 @@ class FleetRouter:
         generates immediately. A split plan between two paged batchers of
         equal block size arms the KV handoff: the request is held after
         prefill and ``drain()`` moves it to the decode pool."""
+        times = RequestTimes(arrived=clock())
         self._rid += 1
-        name = self.route(len(tokens), max_new_tokens, arrival_s)
+        name = self.route(len(tokens), max_new_tokens, arrival_s, times)
         split_to = self._last_split
         out, req = None, None
         if name in self.batchers:
-            req = Request(self._rid, np.asarray(tokens), max_new_tokens,
-                          eos_id=eos_id)
-            src, dst = self.batchers[name], self.batchers.get(split_to)
-            if (split_to is not None
-                    and isinstance(src, PagedContinuousBatcher)
-                    and isinstance(dst, PagedContinuousBatcher)
-                    and src.block_size == dst.block_size):
-                # live handoff: prefill on `name`, hold, then adopt_lane
-                # migrates the KV blocks to `split_to` during drain()
-                req.hold = True
-                self._handoffs[self._rid] = (name, split_to, req)
-            else:
-                # split plan priced and booked but not executable on these
-                # backends (dense batcher or block-size mismatch): the
-                # request runs wholly on the prefill pool, the booking keeps
-                # the priced plan
-                split_to = None
-            src.submit(req)
-            self._pending.append((name, len(tokens), max_new_tokens, req,
-                                  split_to))
+            with span("router.enqueue"):
+                req = Request(self._rid, np.asarray(tokens), max_new_tokens,
+                              eos_id=eos_id, times=times)
+                src, dst = self.batchers[name], self.batchers.get(split_to)
+                if (split_to is not None
+                        and isinstance(src, PagedContinuousBatcher)
+                        and isinstance(dst, PagedContinuousBatcher)
+                        and src.block_size == dst.block_size):
+                    # live handoff: prefill on `name`, hold, then adopt_lane
+                    # migrates the KV blocks to `split_to` during drain()
+                    req.hold = True
+                    self._handoffs[self._rid] = (name, split_to, req)
+                else:
+                    # split plan priced and booked but not executable on
+                    # these backends (dense batcher or block-size mismatch):
+                    # the request runs wholly on the prefill pool, the
+                    # booking keeps the priced plan
+                    split_to = None
+                src.submit(req)
+                self._pending.append((name, len(tokens), max_new_tokens,
+                                      req, split_to))
         elif name in self.engines:
             eng = self.engines[name]
             prompt = torch.as_tensor(np.asarray(tokens), dtype=torch.int32,

@@ -30,6 +30,10 @@ On the CPU (which the caller must ask for) there is no graph: the runner
 stages the same way (static buffers, keys, ``clone()``, counters) around
 an eager call of the step, so the CPU tests cover everything but the
 capture itself.
+
+Under a ``torch.profiler`` session a call opens ``graph.stage`` (the
+sweep, the key, the input copies), then ``graph.replay`` or
+``graph.capture`` (``serving/trace.py``).
 """
 from __future__ import annotations
 
@@ -43,6 +47,7 @@ from repro_torch.kernels import autotune as AT
 from repro_torch.kernels import decode_attention as DA
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import ssm_scan as SS
+from repro_torch.serving.trace import span
 
 # every kernel wrapper's launch count (an attribute ``launches``)
 COUNTERS = (FA.flash_attention, FA.flash_attention_bwd, DA.decode_attention,
@@ -95,38 +100,44 @@ class StepGraphs:
             cache: Dict[str, torch.Tensor]):
         """``step(cache, **inputs)`` captured or replayed; ``inputs`` are
         tensors or Python ints (a 0-d int32 buffer takes an int)."""
-        for k, v in inputs.items():
-            if not isinstance(v, (torch.Tensor, int)):
-                raise TypeError(f"{name}: input {k!r} is a {type(v).__name__}"
-                                f", not a tensor or an int")
-        self._entries = {k: e for k, e in self._entries.items()
-                         if all(r() is not None for r in e.leaves)}
-        if self._cuda and not self._entries:
-            # the allocator releases a pool with its last graph, and a
-            # capture into a released pool's handle fails
-            self._pool = torch.cuda.graph_pool_handle()
-        key = self._key(name, inputs, cache)
-        entry = self._entries.get(key)
+        with span("graph.stage"):
+            for k, v in inputs.items():
+                if not isinstance(v, (torch.Tensor, int)):
+                    raise TypeError(f"{name}: input {k!r} is a "
+                                    f"{type(v).__name__}, not a tensor or "
+                                    f"an int")
+            self._entries = {k: e for k, e in self._entries.items()
+                             if all(r() is not None for r in e.leaves)}
+            if self._cuda and not self._entries:
+                # the allocator releases a pool with its last graph, and a
+                # capture into a released pool's handle fails
+                self._pool = torch.cuda.graph_pool_handle()
+            key = self._key(name, inputs, cache)
+            entry = self._entries.get(key)
+            if entry is not None:
+                for k, v in inputs.items():
+                    buf = entry.static[k]
+                    if isinstance(v, torch.Tensor):
+                        buf.copy_(v)
+                    else:
+                        buf.fill_(v)
         if entry is None:
-            logits, self._entries[key] = self._capture(name, step, inputs,
-                                                       cache)
+            with span("graph.capture"):
+                logits, self._entries[key] = self._capture(name, step,
+                                                           inputs, cache)
             return logits, cache
-        for k, v in inputs.items():
-            buf = entry.static[k]
-            if isinstance(v, torch.Tensor):
-                buf.copy_(v)
+        with span("graph.replay"):
+            if entry.graph is not None:
+                entry.graph.replay()
             else:
-                buf.fill_(v)
-        if entry.graph is not None:
-            entry.graph.replay()
-        else:
-            held = _counts()
-            entry.out, _ = step(cache, **entry.static)
-            _set_counts(held)
-        for fn, n in zip(COUNTERS, entry.counts):
-            fn.launches += n
-        self.replays += 1
-        return entry.out.clone(), cache
+                held = _counts()
+                entry.out, _ = step(cache, **entry.static)
+                _set_counts(held)
+            for fn, n in zip(COUNTERS, entry.counts):
+                fn.launches += n
+            self.replays += 1
+            logits = entry.out.clone()
+        return logits, cache
 
     @staticmethod
     def _key(name: str, inputs: Dict[str, Any],
