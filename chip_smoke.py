@@ -56,6 +56,12 @@ Phases, each printing its own lines; any failure exits non-zero:
                4 heads, D 128, Sq = Sk = 768) and phi3.5-moe's prefill, K2
                at G = 7 and at G = 1 / D 64 on both sides of a split edge
                (block_k 32/64/128), K3 at phi3.5-moe's serving shape; then
+               K6, the paged chunk attention, at mistral-7b's prefill
+               chunk (C 256, a 384-entry table of blocks of 16, window
+               4096, bf16; 38 and 256 valid rows after 0 and 1,024 prior
+               rows, the table shuffled, the null block full of garbage):
+               each row within 2e-2 of that row's largest output, padded
+               rows 0; then
                each timed at each serving path's shapes beside the plain
                version, one PyTorch library call where one computes the
                same function (SDPA, K/V expanded when grouped), and the
@@ -127,7 +133,9 @@ Phases, each printing its own lines; any failure exits non-zero:
   5. serve   — full mistral-7b (32 layers, bf16, random weights from a seed)
                behind FleetRouter(capacity_aware) over paper_fleet(): 8
                requests through paged batchers and 2 through the engine-only
-               path; every kernel's launch count in this phase must be > 0;
+               path; every kernel's launch count in this phase must be > 0
+               (K1, K2, K3 and K6, the paged chunk attention of the
+               batchers' chunked prefill);
   6. serve   — full mamba2-130m and full zamba2-1.2b (bf16, random weights
                from a seed) the same way through dense batchers: K5 must
                launch for both, K1 and K2 for zamba2;
@@ -167,8 +175,8 @@ Phases, each printing its own lines; any failure exits non-zero:
   9. serve   — the new families (bf16 random weights built on the card from
                the seed, each freed before the next): phi3.5-moe-42b-a6.6b
                at full width cut to 16 of its 32 layers (the full depth
-               needs ~83 GB) behind FleetRouter as phase 5 (K1, K2, K3 must
-               launch); qwen2-vl-7b in full, the mix's first 4 prompts each
+               needs ~83 GB) behind FleetRouter as phase 5 (K1, K2, K3 and
+               K6 must launch); qwen2-vl-7b in full, the mix's first 4 prompts each
                with 256 seeded vision embeddings, through
                InferenceEngine.generate (K1, K2); whisper-base in full, 4
                requests of 1500 seeded frames with prompts of at most 64
@@ -276,9 +284,9 @@ autotune cache installed.
 
 The line before the last is one JSON object with each kernel's numbers, one
 row per kernel and serving path: ``name@arch`` is the kernel on that model's
-path (plain ``name`` is mistral-7b's for K1-K4 — K3's launches from phase
-5, K4's from phase 7 — and mamba2-130m's for K5; ``@zamba2-1.2b`` rows
-count phase 6, the whisper-base, qwen2-vl-7b and phi3.5-moe rows phase 9;
+path (plain ``name`` is mistral-7b's for K1-K4 and K6 — K3's and K6's
+launches from phase 5, K4's from phase 7 — and mamba2-130m's for K5;
+``@zamba2-1.2b`` rows count phase 6, the whisper-base, qwen2-vl-7b and phi3.5-moe rows phase 9;
 ``flash_attention_bwd`` and ``flash_attention@smollm-360m`` count phase
 10's smollm-360m steps, ``ssd_scan_bwd`` and ``ssd_scan@mamba2-130m-train``
 (K5's float32 forward) its mamba2-130m steps, and
@@ -320,6 +328,12 @@ SSD_SHAPES = {"mamba2-130m": (24, 64, 128, 128), ZAMBA: (64, 64, 64, 128),
               "reduced": (16, 32, 32, 32)}
 GATHER_TOL = 3e-5     # int8 fused vs the gather oracle (tests/test_autotune.py)
 SERVE_KV_LEN = [40, 130, 300, 528]    # paged decode lanes at serving shape
+# K6 at mistral-7b's prefill chunk in the benchmark's chat cell: C 256,
+# blocks of 16, a 384-entry table (max_len 6144), window 4096; (valid rows,
+# prior rows): chat's ~38-token prompts and a full chunk, from the first
+# row and after 1,024 rows of context
+CHUNK, CHUNK_BLOCKS, CHUNK_BS, WINDOW = 256, 384, 16, 4096
+CHUNK_CASES = ((38, 0), (256, 0), (38, 1024), (256, 1024))
 # the MoE, VLM and audio families' attention shapes
 PHI = "phi3.5-moe-42b-a6.6b"          # 32 query heads on 8 KV heads, D 128
 PHI_LAYERS = 16                       # of 32: the full depth needs ~83 GB
@@ -377,7 +391,7 @@ def phase_build():
         if k4:
             int8.append(k4)
         if spill != "0/0" and ("flash_fwd_" in kern or "bwd_" in kern
-                               or "ssd_" in kern
+                               or "ssd_" in kern or "paged_chunk_" in kern
                                or (k4 and k4[0] == "bf16" and k4[2] == 4)):
             spills.append(kern)
     # K4's split kernel: q float32 or bf16 x D 64 or 128 x R 1 or 4 (a
@@ -388,8 +402,8 @@ def phase_build():
         say("  ptxas: library found on disk, not rebuilt; no compiler "
             "report in this run")
     if spills:
-        fail(f"ptxas reports spills in K1 v3 or v4, K1-bwd, K5, K5-bwd or a "
-             f"four-row bf16 K4 split kernel: {spills}")
+        fail(f"ptxas reports spills in K1 v3 or v4, K1-bwd, K5, K5-bwd, K6 "
+             f"or a four-row bf16 K4 split kernel: {spills}")
     from repro_torch.kernels import ssm_scan as SS
     for arch, (_, _, _, P, N, L) in SSD_TRAIN.items():
         say(f"  layout {arch} P={P} N={N} chunk={L}: " + " ".join(
@@ -402,7 +416,7 @@ REPORTED_KERNELS = ("flash_fwd_wgmma", "flash_fwd_f32", "decode_split_kernel",
                     "ssd_chunk_state_f32", "ssd_state_scan_kernel",
                     "ssd_output_kernel", "ssd_output_f32",
                     "bwd_delta_kernel", "bwd_dkdv_kernel", "bwd_dq_kernel",
-                    "bwd_group_sum_kernel", "ssd_bwd_")
+                    "bwd_group_sum_kernel", "ssd_bwd_", "paged_chunk_")
 
 
 def _int8_split(kern):
@@ -419,8 +433,8 @@ def _int8_split(kern):
 
 def _ptxas_report(log):
     """(kernel, registers, static smem bytes, "stores/loads" spill bytes) of
-    every K1 v3 and v4, K2 v3 / K3 v2 / K4 v2, K5 v2 and v3, K1-bwd and
-    K5-bwd instantiation in nvcc's -Xptxas -v output."""
+    every K1 v3 and v4, K2 v3 / K3 v2 / K4 v2, K5 v2 and v3, K1-bwd,
+    K5-bwd and K6 instantiation in nvcc's -Xptxas -v output."""
     import re
     out, name, spill = [], None, "?"
     for line in log.splitlines():
@@ -832,6 +846,57 @@ def check_paged(torch, gen):
             f"paged_decode_attention@{PHI}": phi}
 
 
+def _chunk_inputs(torch, gen, n_valid, prior):
+    """One lane's bf16 chunk at mistral-7b's shape: q (1, HQ, CHUNK, D) at
+    q_offset ``prior``; pools holding the lane's blocks 1.. (the null block
+    0 full of garbage), its table listing them shuffled, the rest 0; kv_len
+    prior + n_valid."""
+    kv = prior + n_valid
+    used = -(-kv // CHUNK_BS)
+    kp, vp = (_rand(torch, gen, (used + 1, HKV, CHUNK_BS, D), torch.bfloat16)
+              for _ in range(2))
+    kp[0], vp[0] = 1e4, -1e4
+    table = torch.zeros(CHUNK_BLOCKS, dtype=torch.int32, device="cuda")
+    table[:used] = (torch.randperm(used, generator=gen, device="cuda")
+                    + 1).to(torch.int32)
+    q = _rand(torch, gen, (1, HQ, CHUNK, D), torch.bfloat16)
+    return (q, kp, vp, table,
+            torch.tensor([kv], dtype=torch.int32, device="cuda"),
+            torch.tensor(prior, dtype=torch.int32, device="cuda"))
+
+
+def check_chunk(torch, gen):
+    """K6 against its plain version at mistral-7b's chunk, bf16, for each
+    of CHUNK_CASES: on valid rows each row's error within bf16's 2e-2 of
+    that row's largest output (after 1,024 prior rows an output is ~0.05,
+    so an absolute 2e-2 would pass a wrong answer), padded rows exactly 0.
+    Returns the worst absolute error."""
+    from repro_torch.kernels import chunk_attention as CA
+    worst = 0.0
+    for n_valid, prior in CHUNK_CASES:
+        inp = _chunk_inputs(torch, gen, n_valid, prior)
+        got = CA.paged_chunk_attention(*inp, window=WINDOW).float()
+        want = CA.paged_chunk_attention_ref(*inp, window=WINDOW).float()
+        torch.cuda.synchronize()
+        g, w = got[:, :, :n_valid], want[:, :, :n_valid]
+        err = (g - w).abs()
+        row = w.abs().amax(-1, keepdim=True)
+        rel = (err / row).max().item()
+        ok = rel <= TOL["bfloat16"] and \
+            torch.count_nonzero(got[:, :, n_valid:]).item() == 0
+        say(f"  K6 chunk  bfloat16 C={CHUNK} Hq={HQ} Hkv={HKV} D={D} "
+            f"table={CHUNK_BLOCKS}x{CHUNK_BS} window={WINDOW} valid="
+            f"{n_valid} prior={prior}: max_abs_err={err.max().item():.3e} "
+            f"max_err/row_max={rel:.3e} output rms="
+            f"{w.pow(2).mean().sqrt().item():.3e} "
+            f"{'ok' if ok else 'MISMATCH'}")
+        if not ok:
+            fail(f"K6 paged_chunk_attention disagrees with its plain version "
+                 f"(or a padded row is not 0): valid {n_valid} prior {prior}")
+        worst = max(worst, err.max().item())
+    return worst
+
+
 def _int8_inputs(torch, gen, dt, bs, d, kv_len, num_blocks, max_blocks,
                  hq=HQ, hkv=HKV):
     """int8 pools, float32 scale pools in [0.005, 0.02), and tables whose
@@ -1199,6 +1264,15 @@ def time_kernels(torch, gen):
             tiles=_ssd_passes(torch, SS, inp, N, L),
             shape=f"{arch} B=1 H={H} S={S} P={P} N={N} chunk={L} bf16")
     out.update(_time_families(torch, gen, F, FA, DA))
+
+    # K6: one lane's prefill chunk (the paged batchers), each of
+    # CHUNK_CASES; the row is chat's (38 valid rows, none before)
+    cases = {f"{n}@{prior}": _chunk_row(torch, F, gen, n, prior)
+             for n, prior in CHUNK_CASES}
+    out["paged_chunk_attention"] = dict(
+        cases["38@0"], cases=cases,
+        shape=f"C={CHUNK} valid=38 prior=0 Hq={HQ} Hkv={HKV} D={D} "
+              f"table={CHUNK_BLOCKS}x{CHUNK_BS} window={WINDOW} bf16")
     for name, r in out.items():
         lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         extra = f" gather_ms={r['gather_ms']:.4f}" if "gather_ms" in r else ""
@@ -1209,7 +1283,44 @@ def time_kernels(torch, gen):
             what = "pass" if name.startswith("ssd_scan") else "tile"
             say(f"  tiles {name:33s} ms by {what}: " + " ".join(
                 f"{t}={ms:.4f}" for t, ms in r["tiles"].items()))
+        for case, c in r.get("cases", {}).items():
+            say(f"  case {name} valid@prior={case}: ms={c['ms']:.5f} "
+                f"plain_ms={c['plain_ms']:.4f} library_ms="
+                f"{c['library_ms']:.4f} bound_ms={c['bound_ms']:.5f} "
+                f"({c['bound_by']})")
     return out
+
+
+def _chunk_row(torch, F, gen, n_valid, prior):
+    """K6 at one of CHUNK_CASES beside its plain version (the path it
+    replaced: the whole table gathered, then the dense float32 attention)
+    and, as a yardstick the port never calls, one SDPA call on the gathered
+    table (K/V expanded, a boolean mask). Bound over the valid (query, key)
+    pairs, each byte once: the valid rows of q and o, the K/V rows they
+    reach, their table entries and the two lengths."""
+    from repro_torch.kernels import chunk_attention as CA
+    from repro_torch.kernels import ref
+    inp = _chunk_inputs(torch, gen, n_valid, prior)
+    q, kp, vp, table = inp[:4]
+    kv = prior + n_valid
+    k, v = (ref.gather_paged_kv(pool, table[None]).repeat_interleave(
+        HQ // HKV, dim=1) for pool in (kp, vp))
+    qpos = prior + torch.arange(CHUNK, device="cuda")[:, None]
+    kpos = torch.arange(k.shape[2], device="cuda")[None]
+    mask = (kpos <= qpos) & (qpos - kpos < WINDOW) & (kpos < kv)
+    pairs = sum(min(prior + i + 1, WINDOW) for i in range(n_valid))
+    first = max(0, prior - WINDOW + 1)
+    nbytes = (2 * HQ * n_valid * D + 2 * HKV * (kv - first) * D) * 2 \
+        + 4 * -(-kv // CHUNK_BS) + 8
+    b_ms, b_by = _bound(4 * HQ * D * pairs, nbytes)
+    return dict(
+        ms=time_ms(torch, lambda: CA.paged_chunk_attention(*inp,
+                                                           window=WINDOW)),
+        plain_ms=time_ms(torch, lambda: CA.paged_chunk_attention_ref(
+            *inp, window=WINDOW)),
+        library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask)),
+        bound_ms=b_ms, bound_by=b_by)
 
 
 def _flash_row(torch, F, FA, q, k, v, *, causal, shape):
@@ -1334,7 +1445,8 @@ def phase_kernels(torch):
     errs = {**check_flash(torch, gen), **check_decode(torch, gen),
             **check_paged(torch, gen),
             "paged_decode_attention_int8": check_int8(torch, gen),
-            **check_ssd(torch, gen)}
+            **check_ssd(torch, gen),
+            "paged_chunk_attention": check_chunk(torch, gen)}
     times = time_kernels(torch, gen)
     return errs, times
 
@@ -1461,11 +1573,11 @@ def _batcher_parity(label, eng, make_batcher, prompts):
 
 def _dense_and_paged_parity(torch, label, eng, prompts):
     """Kernel path vs plain path through the dense engine (prefill on K1,
-    8 decode steps on K2), then a paged cache: chunked prefill (plain chunk
-    attention in both) and 8 paged decode steps (K3, or the int8 read for
-    an int8 cache) over two lanes of one pool, then the paged batcher.
-    Returns the worst logit error, the kernel path's logits of every step
-    and the batcher's tokens."""
+    8 decode steps on K2), then a paged cache: chunked prefill (K6, or the
+    plain gather path for an int8 cache) and 8 paged decode steps (K3, or
+    the int8 read for an int8 cache) over two lanes of one pool, then the
+    paged batcher. Returns the worst logit error, the kernel path's logits
+    of every step and the batcher's tokens."""
     import numpy as np
     from repro_torch.serving.batching import PagedContinuousBatcher
     worst, caches, seen = _engine_parity(torch, f"{label}dense", eng, prompts)
@@ -1775,10 +1887,11 @@ def _serve(torch, card, arch, kernels, needed, *, paged, kv_quant=False,
 
 def phase_serve(torch, card):
     say("== phase 5: serve mistral-7b (32 layers, bf16) through FleetRouter")
+    from repro_torch.kernels import chunk_attention as CA
     from repro_torch.kernels import decode_attention as DA
     from repro_torch.kernels import flash_attention as FA
     kernels = (FA.flash_attention, DA.decode_attention,
-               DA.paged_decode_attention)
+               DA.paged_decode_attention, CA.paged_chunk_attention)
     return _serve(torch, card, "mistral-7b", kernels,
                   [fn.__name__ for fn in kernels], paged=True)
 
@@ -1955,10 +2068,11 @@ def phase_serve_families(torch, card):
     qwen2-vl-7b and whisper-base in full through InferenceEngine.generate.
     Returns each kernels-line row's launches."""
     from repro_torch.configs import get_config
+    from repro_torch.kernels import chunk_attention as CA
     from repro_torch.kernels import decode_attention as DA
     from repro_torch.kernels import flash_attention as FA
     kernels = (FA.flash_attention, DA.decode_attention,
-               DA.paged_decode_attention)
+               DA.paged_decode_attention, CA.paged_chunk_attention)
     names = [fn.__name__ for fn in kernels]
     out = {}
     say(f"== phase 9: serve {PHI} ({PHI_LAYERS} of 32 layers, bf16) through "
@@ -3725,7 +3839,11 @@ def main() -> None:
                "ssd_scan_bwd": (
                    "src/repro_torch/csrc/ssm_scan_bwd.cu",
                    "src/repro/kernels/ssm_scan.py:73 (its gradient; no "
-                   "Pallas counterpart)")}
+                   "Pallas counterpart)"),
+               "paged_chunk_attention": (
+                   "src/repro_torch/csrc/chunk_attention.cu",
+                   "none: the JAX package attends a prefill chunk on its "
+                   "plain path (src/repro/models/attention.py:162)")}
     rows = []
     for kname in ("flash_attention", "decode_attention",
                   "paged_decode_attention", "paged_decode_attention_int8",
@@ -3734,7 +3852,8 @@ def main() -> None:
                   f"flash_attention@{WHISPER}", f"flash_attention@{QWEN}",
                   f"flash_attention@{PHI}", f"decode_attention@{QWEN}",
                   f"decode_attention@{WHISPER}",
-                  f"paged_decode_attention@{PHI}", "flash_attention_bwd",
+                  f"paged_decode_attention@{PHI}", "paged_chunk_attention",
+                  "flash_attention_bwd",
                   f"flash_attention@{SMOLLM}", f"flash_attention_bwd@{ZAMBA}",
                   f"flash_attention@{ZAMBA}-train", "ssd_scan_bwd",
                   f"ssd_scan_bwd@{ZAMBA}", "ssd_scan@mamba2-130m-train",

@@ -71,6 +71,7 @@
 #include <cuda.h>
 
 #include "flash_common.cuh"
+#include "wgmma.cuh"
 
 namespace repro_torch {
 
@@ -304,11 +305,8 @@ constexpr int kStages = 2;        // K/V tiles in flight
 constexpr int kWG = 128;          // threads of a warpgroup
 constexpr int kProducerRegs = 24;
 constexpr int kConsumerRegs = 240;
-constexpr float kLog2e = 1.4426950408889634f;
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
+using namespace wg;
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
@@ -366,204 +364,6 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1), "r"(c2)
       : "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// Pin accumulator registers at this point of the program: the compiler sees
-// wgmma's outputs as ready when the asm statement issues, so reads after
-// wgmma_wait_all and writes before wgmma_fence are ordered by these.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-// Shared-memory matrix descriptor of a 128-byte swizzled operand. K-major
-// (Q, K): rows of 128 bytes, 8-row groups 1024 bytes apart (SBO); the
-// leading offset is unused. MN-major (V): the same 8-row groups along K,
-// and 64-column panels `lbo` bytes apart along N.
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>((lbo & 0x3FFFF) >> 4) << 16) |
-         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
-}
-
-// wgmma m64nNk16, bf16 in, float32 accumulate. _ss: A and B from shared
-// memory, both K-major. _rs: A from registers (four bf16 pairs per thread),
-// B from shared memory MN-major.
-__device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t a,
-                                         uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
-      " %14, %15}, "
-      "%16, %17, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15])
-      : "l"(a), "l"(b), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a,
-                                         uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
-      " %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
-      " %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(a), "l"(b), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t a,
-                                         uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
-      " %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
-      " %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
-      " %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
-      " %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
-      " %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(a), "l"(b), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_rs(float (&d)[32],
-                                         const uint32_t (&a)[4], uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
-      " %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
-      " %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_rs(float (&d)[64],
-                                         const uint32_t (&a)[4], uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
-      " %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
-      " %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
-      " %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
-      " %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
-      " %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&h);
-}
-
-// Online-softmax update of a thread's two rows (qpos0 and qpos0 + 8)
-// against one tile's scores in the m64n{BK} accumulator fragment: scale,
-// softcap, then (MASK) the masks; row max and sum across the quad; sacc
-// becomes P (unrounded) and alpha the rescale of the rows' running O. l is
-// this thread's share of the row sum (its columns), reduced at the end.
-template <int BK, bool MASK>
-__device__ __forceinline__ void softmax_tile(
-    float (&sacc)[BK / 2], float (&m)[2], float (&l)[2], float (&alpha)[2],
-    int k0, int qpos0, int lane, int causal, int window, int sk_valid,
-    float scale, float softcap) {
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    const int qpos = qpos0 + 8 * hh;
-    float mx = m[hh];
-#pragma unroll
-    for (int j = 0; j < BK / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int idx = 4 * j + 2 * hh + e;
-        float x = sacc[idx] * scale;
-        if (softcap > 0.f) x = softcap * tanhf(x / softcap);
-        if (MASK) {
-          const int kpos = k0 + 8 * j + 2 * (lane % 4) + e;
-          bool ok = kpos < sk_valid;
-          if (causal) ok = ok && kpos <= qpos;
-          if (window > 0) ok = ok && (qpos - kpos) < window;
-          x = ok ? x : -INFINITY;
-        }
-        sacc[idx] = x;
-        mx = fmaxf(mx, x);
-      }
-    }
-    mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 1));
-    mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 2));
-    const float base = mx == -INFINITY ? 0.f : mx;   // no valid key yet
-    alpha[hh] = exp2f((m[hh] - base) * kLog2e);
-    float sum = 0.f;
-#pragma unroll
-    for (int j = 0; j < BK / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int idx = 4 * j + 2 * hh + e;
-        const float p = exp2f((sacc[idx] - base) * kLog2e);
-        sacc[idx] = p;
-        sum += p;
-      }
-    }
-    l[hh] = l[hh] * alpha[hh] + sum;
-    m[hh] = mx;
-  }
 }
 
 template <int D, int BK, int NC>
@@ -705,11 +505,13 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
             k0 + BK <= sk_valid && (!causal || k0 + BK - 1 <= wg_first) &&
             (window <= 0 || wg_last - k0 < window);
         if (interior) {
-          softmax_tile<BK, false>(sacc, m, l, alpha, k0, qpos0, lane, causal,
-                                  window, sk_valid, scale, softcap);
+          softmax_tile<BK, false>(sacc, m, l, alpha, k0, qpos0, qpos0 + 8,
+                                  lane, causal, window, sk_valid, scale,
+                                  softcap);
         } else {
-          softmax_tile<BK, true>(sacc, m, l, alpha, k0, qpos0, lane, causal,
-                                 window, sk_valid, scale, softcap);
+          softmax_tile<BK, true>(sacc, m, l, alpha, k0, qpos0, qpos0 + 8,
+                                 lane, causal, window, sk_valid, scale,
+                                 softcap);
         }
 
         // O = O·alpha + P·V

@@ -49,6 +49,10 @@ _SIGNATURES = {
     "repro_paged_decode_attention_int8": [_I, _I, _P, _P, _P, _P, _P, _P, _P,
                                           _P, _P, _I, _I, _I, _I, _I, _I, _F,
                                           _F, _I, _P],
+    # dtype, D; q k_pool v_pool table kv_len q_offset o; Hq Hkv C block_size
+    # max_blocks window; softcap scale; the stream
+    "repro_paged_chunk_attention": [_I, _I] + [_P] * 7 + [_I] * 6
+    + [_F, _F] + [_P],
     "repro_ssd_scan": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                        _I, _I, _I, _P],
     # dtype, N; x dt A B C dy dfinal, the forward's workspace (states,

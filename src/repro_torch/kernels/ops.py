@@ -1,12 +1,13 @@
 """Kernel entry points with device dispatch — the counterpart of
 ``repro/kernels/ops.py``. Models call these and never a kernel directly.
 
-``backend="auto"`` (the default): a CPU tensor runs the plain version in
-``ref``; a CUDA tensor launches the Hopper kernel, or raises if the kernel
-does not take its inputs. Under grad mode with an input that requires
-grad, ``flash_attention`` goes through K1's autograd Function (backward:
-K1-bwd) and ``ssd_scan`` through K5's (backward: K5-bwd); the decode
-kernels K2, K3 and K4 raise on a CUDA tensor there: they have no backward
+``backend="auto"`` (the default): a CPU tensor runs the plain version (in
+``ref``, or beside its kernel's wrapper); a CUDA tensor launches the
+Hopper kernel, or raises if the kernel does not take its inputs. Under
+grad mode with an input that requires grad, ``flash_attention`` goes
+through K1's autograd Function (backward: K1-bwd) and ``ssd_scan``
+through K5's (backward: K5-bwd); the decode kernels K2, K3 and K4 and
+the chunk kernel K6 raise on a CUDA tensor there: they have no backward
 kernel, and their output would carry no gradient. There is no fallback
 from the kernel to the plain version and no environment override.
 ``backend="ref"`` asks for the plain version on any device: the on-card
@@ -28,6 +29,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import autotune as _at
+from repro_torch.kernels import chunk_attention as _ca
 from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import ref as _ref
@@ -120,6 +122,22 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, kv_len, *,
     _refuse_grad("paged_decode_attention", q, k_pool, v_pool)
     return _da.paged_decode_attention(q, k_pool, v_pool, block_tables, kv_len,
                                       window=window, softcap=softcap)
+
+
+def paged_chunk_attention(q, k_pool, v_pool, table, kv_len, q_offset, *,
+                          window: Optional[int] = None,
+                          softcap: Optional[float] = None,
+                          backend: str = "auto") -> torch.Tensor:
+    """One lane's prefill chunk over its paged KV cache (K6 on the card),
+    ``q_offset`` and ``kv_len`` device tensors. See
+    ``chunk_attention.paged_chunk_attention``."""
+    if not _use_kernel(q, backend):
+        return _ca.paged_chunk_attention_ref(q, k_pool, v_pool, table,
+                                             kv_len, q_offset, window=window,
+                                             softcap=softcap)
+    _refuse_grad("paged_chunk_attention", q, k_pool, v_pool)
+    return _ca.paged_chunk_attention(q, k_pool, v_pool, table, kv_len,
+                                     q_offset, window=window, softcap=softcap)
 
 
 def paged_decode_attention_quant(q, k_pool, v_pool, k_scale_pool,

@@ -186,31 +186,30 @@ def paged_prefill_chunk_attention(params, cfg: ModelConfig, x: torch.Tensor,
     are padding; their writes are already redirected to the null block by
     ``block_ids``). The chunk's K/V rows go into the pools in place at
     (block_ids, rows); then the chunk's queries attend over the lane's
-    gathered blocks, causal at absolute offset ``q_offset`` (0-d tensor)
-    and masked at ``kv_len`` (shape (1,)). int8 pools (scale pools given)
-    are written quantized per row and read gathered and dequantized to q's
-    dtype, as in the reference.
+    blocks, causal at absolute offset ``q_offset`` (0-d tensor) and masked
+    at ``kv_len`` (shape (1,)). Float pools are read through the table by
+    ``ops.paged_chunk_attention`` (K6 on the card), whose padded rows come
+    back as zeros. int8 pools (scale pools given) are written quantized per
+    row and read gathered and dequantized to q's dtype, as in the reference,
+    then attended on the masked plain path.
     """
     q, k, v = _qkv(params, cfg, x, positions)
     krows = k[0].transpose(0, 1)                             # (C, Hkv, D)
     vrows = v[0].transpose(0, 1)
-    if k_scale_pool is not None:
-        _write_int8(k_pool, v_pool, k_scale_pool, v_scale_pool,
-                    (block_ids, slice(None), rows), krows, vrows)
-        tab = table[None]
-        k_read = dequantize_kv(ref.gather_paged_kv(k_pool, tab),
-                               ref.gather_paged_kv(k_scale_pool, tab), q.dtype)
-        v_read = dequantize_kv(ref.gather_paged_kv(v_pool, tab),
-                               ref.gather_paged_kv(v_scale_pool, tab), q.dtype)
-    else:
+    if k_scale_pool is None:
         k_pool[block_ids, :, rows] = krows.to(k_pool.dtype)  # in place
         v_pool[block_ids, :, rows] = vrows.to(v_pool.dtype)  # in place
-        k_read = ref.gather_paged_kv(k_pool, table[None])
-        v_read = ref.gather_paged_kv(v_pool, table[None])
-    # chunk attention runs on the masked plain path, as in the reference: it
-    # needs both a device-side q_offset and kv_len masking, which the flash
-    # prefill kernel does not take; chunks are short, so the O(C * ctx)
-    # dense scores are cheap
+        out = ops.paged_chunk_attention(
+            q, k_pool, v_pool, table, kv_len, q_offset, window=window,
+            softcap=cfg.attn_logit_softcap, backend=backend)
+        return L.linear(params["o"], _merge_heads(out))
+    _write_int8(k_pool, v_pool, k_scale_pool, v_scale_pool,
+                (block_ids, slice(None), rows), krows, vrows)
+    tab = table[None]
+    k_read = dequantize_kv(ref.gather_paged_kv(k_pool, tab),
+                           ref.gather_paged_kv(k_scale_pool, tab), q.dtype)
+    v_read = dequantize_kv(ref.gather_paged_kv(v_pool, tab),
+                           ref.gather_paged_kv(v_scale_pool, tab), q.dtype)
     out = ref.mha_attention(q, k_read, v_read, causal=True, window=window,
                             softcap=cfg.attn_logit_softcap, q_offset=q_offset,
                             kv_len=kv_len)

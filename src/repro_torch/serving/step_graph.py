@@ -44,6 +44,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import torch
 
 from repro_torch.kernels import autotune as AT
+from repro_torch.kernels import chunk_attention as CA
 from repro_torch.kernels import decode_attention as DA
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import ssm_scan as SS
@@ -52,7 +53,7 @@ from repro_torch.serving.trace import span
 # every kernel wrapper's launch count (an attribute ``launches``)
 COUNTERS = (FA.flash_attention, FA.flash_attention_bwd, DA.decode_attention,
             DA.paged_decode_attention, DA.paged_decode_attention_int8,
-            SS.ssd_scan, SS.ssd_scan_bwd)
+            SS.ssd_scan, SS.ssd_scan_bwd, CA.paged_chunk_attention)
 
 Step = Callable[..., Tuple[torch.Tensor, Dict[str, torch.Tensor]]]
 

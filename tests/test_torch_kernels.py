@@ -273,7 +273,7 @@ def test_kernel_sources_and_build_are_lazy():
     srcs = {p.name for p in _build._sources()}
     assert srcs == {"flash_attention.cu", "decode_attention.cu",
                     "ssm_scan.cu", "flash_attention_bwd.cu",
-                    "ssm_scan_bwd.cu"}
+                    "ssm_scan_bwd.cu", "chunk_attention.cu"}
     text = (_build.CSRC_DIR / "flash_attention.cu").read_text()
     assert "repro/kernels/flash_attention.py" in text
     # K1-bwd: the gradient of the same TPU kernel, which has no backward
@@ -294,6 +294,14 @@ def test_kernel_sources_and_build_are_lazy():
     assert len(_build._SIGNATURES["repro_ssd_scan_bwd"]) == 27
     text = (_build.CSRC_DIR / "decode_attention.cu").read_text()
     assert "_decode_kernel" in text and "_paged_decode_kernel" in text
+    # K6, the paged chunk attention, replaces no Pallas kernel: the JAX
+    # package's chunked prefill attends on its plain path
+    text = (_build.CSRC_DIR / "chunk_attention.cu").read_text()
+    assert "Replaces no Pallas kernel" in text
+    assert 'extern "C" int repro_paged_chunk_attention(' in text
+    # dtype, D, q k_pool v_pool table kv_len q_offset o, 6 ints, 2 floats,
+    # the stream
+    assert len(_build._SIGNATURES["repro_paged_chunk_attention"]) == 18
     assert "arch=compute_90a,code=sm_90a" in " ".join(_build.NVCC_FLAGS)
 
 

@@ -393,14 +393,17 @@ def test_each_replay_adds_what_the_capture_counted():
     assert dict(zip((fn.__name__ for fn in SGR.COUNTERS), entry.counts)) == {
         "flash_attention": 0, "flash_attention_bwd": 0,
         "decode_attention": 2, "paged_decode_attention": 0,
-        "paged_decode_attention_int8": 0, "ssd_scan": 1, "ssd_scan_bwd": 0}
+        "paged_decode_attention_int8": 0, "ssd_scan": 1, "ssd_scan_bwd": 0,
+        "paged_chunk_attention": 0}
 
 
 def test_every_kernel_wrapper_has_a_counter_in_the_runner():
+    from repro_torch.kernels import chunk_attention as CA
     from repro_torch.kernels import flash_attention as FA
     wrappers = {FA.flash_attention, FA.flash_attention_bwd,
                 DA.decode_attention, DA.paged_decode_attention,
-                DA.paged_decode_attention_int8, SS.ssd_scan, SS.ssd_scan_bwd}
+                DA.paged_decode_attention_int8, SS.ssd_scan, SS.ssd_scan_bwd,
+                CA.paged_chunk_attention}
     assert set(SGR.COUNTERS) == wrappers
     assert all(isinstance(fn.launches, int) for fn in SGR.COUNTERS)
 
