@@ -392,6 +392,7 @@ def phase_build():
             int8.append(k4)
         if spill != "0/0" and ("flash_fwd_" in kern or "bwd_" in kern
                                or "ssd_" in kern or "paged_chunk_" in kern
+                               or "moe_gemm" in kern
                                or (k4 and k4[0] == "bf16" and k4[2] == 4)):
             spills.append(kern)
     # K4's split kernel: q float32 or bf16 x D 64 or 128 x R 1 or 4 (a
@@ -402,8 +403,8 @@ def phase_build():
         say("  ptxas: library found on disk, not rebuilt; no compiler "
             "report in this run")
     if spills:
-        fail(f"ptxas reports spills in K1 v3 or v4, K1-bwd, K5, K5-bwd, K6 "
-             f"or a four-row bf16 K4 split kernel: {spills}")
+        fail(f"ptxas reports spills in K1 v3 or v4, K1-bwd, K5, K5-bwd, K6, "
+             f"K7 or a four-row bf16 K4 split kernel: {spills}")
     from repro_torch.kernels import ssm_scan as SS
     for arch, (_, _, _, P, N, L) in SSD_TRAIN.items():
         say(f"  layout {arch} P={P} N={N} chunk={L}: " + " ".join(
@@ -416,7 +417,8 @@ REPORTED_KERNELS = ("flash_fwd_wgmma", "flash_fwd_f32", "decode_split_kernel",
                     "ssd_chunk_state_f32", "ssd_state_scan_kernel",
                     "ssd_output_kernel", "ssd_output_f32",
                     "bwd_delta_kernel", "bwd_dkdv_kernel", "bwd_dq_kernel",
-                    "bwd_group_sum_kernel", "ssd_bwd_", "paged_chunk_")
+                    "bwd_group_sum_kernel", "ssd_bwd_", "paged_chunk_",
+                    "moe_gemm")
 
 
 def _int8_split(kern):
@@ -3776,6 +3778,290 @@ def phase_price(torch, card):
             say(f"  14e {line} — {origin}")
     say(f"  14 phase time {time.perf_counter() - t0:.3f} s card={card}")
 
+# --------------------------------------------------------------- phase 15
+NANO = "nemotron-3-nano-30b-a3b"
+
+
+def _ssd_group_bound(S, H, P, N, G, L):
+    full, r = divmod(S, L)
+    pairs = full * L * (L + 1) // 2 + r * (r + 1) // 2
+    flops = 2 * H * (pairs * (N + P) + 2 * S * P * N)
+    nbytes = (2 * H * S * P + 2 * S * G * N) * 2 + (H * S + H) * 4 \
+        + H * P * N * 4
+    return _bound(flops, nbytes)
+
+
+def _replaced_dispatch(torch, MOE, x, idx, gate, w_up, w_down):
+    """The dropless E x T dispatch K7 replaced (C = T: a slot of every
+    expert for every token), on K7's weight layout."""
+    E, T = w_up.shape[0], x.shape[0]
+    buf, meta = MOE._dispatch(x, idx, gate, E, T)
+    h = torch.relu(torch.einsum("ecd,efd->ecf", buf, w_up)).square()
+    out = torch.einsum("ecf,edf->ecd", h, w_down).reshape(E * T, -1)
+    return MOE._combine(out, meta, T)
+
+
+def _router_flips(torch, gen, cfg):
+    """How often bf16 and float32 pick other experts: Nemotron-3-Nano's
+    first two blocks (M, E) at full width on one 512-token prompt, the
+    port's bf16 path against the float32 reference, through the router."""
+    sys.path.insert(0, str(ROOT))
+    from serve_bench.reference import common as RC
+    from serve_bench.reference import nemotron_h as REF
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe as MOE
+    from repro_torch.models import ssm as SSM
+    m = json.loads((ROOT / "serve_bench" / "configs" /
+                    f"{NANO}.json").read_text())["model"]
+    m2 = dict(m, num_layers=2, block_pattern="ME")
+    cfg2 = dataclasses.replace(cfg, num_layers=2, block_pattern="ME")
+    w = REF.make_weights(m2, gen, torch.bfloat16, "cuda")
+    toks = torch.randint(0, m["vocab_size"], (1, 512), generator=gen,
+                         device="cuda")
+    with torch.no_grad():
+        h = w["embed"]["emb"][toks]
+        lp0, lp1 = w["layers"]
+        h = h + SSM.mamba_apply(lp0["mamba"], cfg2,
+                                L.rmsnorm(lp0["norm"], h))
+        idx, _ = MOE.route_sigmoid(lp1["moe"], cfg2,
+                                   L.rmsnorm(lp1["norm"], h)[0])
+        hf = RC.f32(w["embed"]["emb"][toks[0]])
+        f0, f1 = RC.to_f32(lp0), RC.to_f32(lp1)
+        hf = hf + REF._mamba(f0["mamba"], m2,
+                             RC.rmsnorm(hf, f0["norm"]["scale"]), None)
+        want, _ = REF.route(f1["moe"], m2, RC.rmsnorm(hf, f1["norm"]["scale"]))
+    a = torch.sort(idx, -1).values
+    b = torch.sort(want, -1).values
+    k = idx.shape[1]
+    pairs = sum(len(set(x) ^ set(y)) // 2 for x, y in
+                zip(a.tolist(), b.tolist()))
+    tokens = int((a != b).any(-1).sum())
+    return pairs, tokens, idx.shape[0], k
+
+
+def phase_nemotron(torch, card):
+    """Nemotron-3-Nano-30B-A3B's kernels at the cell's shapes, each against
+    its plain version: K5 in 8 groups of N 128, K7 at decode (8, 32, 64
+    live lanes of 64) and at a 2,048-row prefill beside the E x T dispatch
+    it replaced, K1 and K2 at 32 query heads on 2 KV heads (G = 16, D 128),
+    and the router's choices in bf16 against float32."""
+    say("== phase 15: nemotron-3-nano-30b-a3b kernels")
+    errs, times = {}, {}
+    say(f"  15 card memory {torch.cuda.get_device_properties(0).total_memory}"
+        f" bytes card={card}")
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import moe_experts as ME
+    from repro_torch.kernels import ssm_scan as SS
+    from repro_torch.models import moe as MOE
+    cfg = get_config(NANO)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    bf = torch.bfloat16
+    H, P, N, G = 64, 64, 128, 8
+    for S in (512, 2048):
+        x = _rand(torch, gen, (1, H, S, P), bf)
+        dt = torch.rand((1, H, S), generator=gen, device="cuda") * 0.2 + 1e-3
+        A = -(torch.rand((H,), generator=gen, device="cuda") * 3.5 + 0.5)
+        Bm = _rand(torch, gen, (1, S, G, N), bf)
+        Cm = _rand(torch, gen, (1, S, G, N), bf)
+        y, fs = SS.ssd_scan(x, dt, A, Bm, Cm)
+        wy, wfs = SS.ssd_scan_ref(x, dt, A, Bm, Cm)
+        err = max((y.float() - wy.float()).abs().max().item(),
+                  (fs - wfs).abs().max().item())
+        ms = time_ms(torch, lambda: SS.ssd_scan(x, dt, A, Bm, Cm))
+        plain = time_ms(torch, lambda: SS.ssd_scan_ref(x, dt, A, Bm, Cm),
+                        calls=2, replays=3)
+        bound, by = _ssd_group_bound(S, H, P, N, G, 128)
+        say(f"  15a K5 groups bf16 H={H} P={P} N={N} G={G} S={S}: "
+            f"max_abs_err {err:.3e}, {ms:.4f} ms (bound {bound:.5f} ms by "
+            f"{by}, {bound / ms * 100:.1f}%), plain {plain:.4f} ms card={card}")
+        if err > 5e-2 * max(1.0, wy.float().abs().max().item()):
+            fail(f"phase 15a: K5 in groups disagrees at S={S}: {err}")
+        if S == 512:
+            errs[f"ssd_scan@{NANO}"] = err
+            times[f"ssd_scan@{NANO}"] = {"ms": ms, "plain_ms": plain,
+                                         "bound_ms": bound, "bound_by": by,
+                                         "library_ms": None}
+    E, k, d, f = 128, 6, cfg.d_model, cfg.d_ff
+    w_up = (_rand(torch, gen, (E, f, d), torch.float32) * d ** -0.5).to(bf)
+    w_down = (_rand(torch, gen, (E, d, f), torch.float32) * f ** -0.5).to(bf)
+    router = {"router": {"w": (_rand(torch, gen, (d, E), torch.float32)
+                               * d ** -0.5).to(bf)}}
+    for T, n_live in ((64, 8), (64, 32), (64, 64), (2048, 2048)):
+        x = _rand(torch, gen, (T, d), bf)
+        live = torch.zeros(T, dtype=torch.bool, device="cuda")
+        live[:n_live] = True
+        idx, gate = MOE.route_sigmoid(router, cfg, x)
+        r = ME.route_table(idx, gate, E, live)
+        got = ME.moe_experts(x, w_up, w_down, r)
+        want = ME.moe_experts_ref(x, w_up, w_down, r)
+        err = ((got - want).abs().max() / want.abs().max()).item()
+        rows, touched = int(r.offsets[-1]), int(ME.experts_touched(r))
+        ms = time_ms(torch, lambda: ME.moe_experts(x, w_up, w_down, r))
+        up = time_ms(torch, lambda: ME.moe_experts(x, w_up, w_down, r,
+                                                   passes=1))
+        down = time_ms(torch, lambda: ME.moe_experts(x, w_up, w_down, r,
+                                                     passes=2))
+        plain = _eager_ms(torch, lambda: ME.moe_experts_ref(x, w_up, w_down,
+                                                            r), reps=3)
+        reps = 3 if T > 64 else 10
+        old = time_ms(torch, lambda: _replaced_dispatch(
+            torch, MOE, x, idx, gate, w_up, w_down), calls=reps, replays=3)
+        bound, by = _bound(4.0 * rows * d * f,
+                           touched * 4.0 * d * f + rows * d * 6.0)
+        say(f"  15b K7 T={T} live={n_live}: rows {rows}, experts {touched}, "
+            f"err/max {err:.3e}, {ms:.4f} ms (up {up:.4f}, down {down:.4f};"
+            f" bound {bound:.4f} ms by {by}, {bound / ms * 100:.1f}%), plain "
+            f"{plain:.3f} ms, replaced E x T dispatch {old:.3f} ms "
+            f"card={card}")
+        if err > 2e-2 or rows != k * n_live:
+            fail(f"phase 15b: K7 at T={T} live={n_live}: err {err}, rows "
+                 f"{rows}")
+        if (T, n_live) == (64, 32):          # the kernels line's K7 row
+            errs["moe_experts"] = (got - want).abs().max().item()
+            times["moe_experts"] = {"ms": ms, "plain_ms": plain,
+                                    "bound_ms": bound, "bound_by": by,
+                                    "library_ms": None}
+    # the whole MoE layer (route, K7, the shared expert, the combine) at
+    # the cell's decode, 22 live lanes of 64, against K7 alone
+    lp = {"router": {"w": router["router"]["w"],
+                     "bias": torch.zeros(E, device="cuda")},
+          "w_up": w_up, "w_down": w_down,
+          "shared": {"up": {"w": (_rand(torch, gen, (d, 3712), torch.float32)
+                                  * d ** -0.5).to(bf)},
+                     "down": {"w": (_rand(torch, gen, (3712, d),
+                                          torch.float32)
+                                    * 3712 ** -0.5).to(bf)}}}
+    x = _rand(torch, gen, (64, 1, d), bf)
+    live = torch.arange(64, device="cuda") < 22
+    layer = time_ms(torch, lambda: MOE.moe_apply_sigmoid(lp, cfg, x,
+                                                         live=live))
+    idx, gate = MOE.route_sigmoid(lp, cfg, x[:, 0])
+    r = ME.route_table(idx, gate, E, live)
+    k7 = time_ms(torch, lambda: ME.moe_experts(x[:, 0], w_up, w_down, r))
+    say(f"  15b MoE layer at decode, 22 live lanes of 64: {layer:.4f} ms, "
+        f"of it K7 {k7:.4f} ms ({k7 / layer * 100:.1f}%) card={card}")
+    q = _rand(torch, gen, (1, 32, 2048, 128), bf)
+    kk = _rand(torch, gen, (1, 2, 2048, 128), bf)
+    vv = _rand(torch, gen, (1, 2, 2048, 128), bf)
+    err = (FA.flash_attention(q, kk, vv).float()
+           - FA.flash_attention_ref(q, kk, vv).float()).abs().max().item()
+    ms = time_ms(torch, lambda: FA.flash_attention(q, kk, vv))
+    say(f"  15c K1 bf16 32/2 heads D 128 S 2048 causal: max_abs_err "
+        f"{err:.3e}, {ms:.4f} ms card={card}")
+    kc = _rand(torch, gen, (64, 2, 6144, 128), bf)
+    vc = _rand(torch, gen, (64, 2, 6144, 128), bf)
+    q1 = _rand(torch, gen, (64, 32, 1, 128), bf)
+    kvl = torch.randint(1, 400, (64,), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    err2 = (DA.decode_attention(q1, kc, vc, kvl).float()
+            - DA.decode_attention_ref(q1, kc, vc, kvl).float()
+            ).abs().max().item()
+    ms2 = time_ms(torch, lambda: DA.decode_attention(q1, kc, vc, kvl))
+    say(f"  15c K2 bf16 B 64 32/2 heads D 128 max_len 6144 kv_len < 400: "
+        f"max_abs_err {err2:.3e}, {ms2:.4f} ms card={card}")
+    if err > 2e-2 or err2 > 2e-2:
+        fail(f"phase 15c: K1 / K2 at G = 16 disagree: {err}, {err2}")
+    del kc, vc, w_up, w_down
+    gc.collect()
+    torch.cuda.empty_cache()
+    pairs, tokens, T, k = _router_flips(torch, gen, cfg)
+    say(f"  15d router bf16 vs float32 (blocks M, E at full width, one "
+        f"512-token prompt): {pairs} of {T * k} (token, expert) choices "
+        f"differ, in {tokens} of {T} tokens card={card}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return _serve_nemotron(torch, card), errs, times
+
+
+def _serve_nemotron(torch, card):
+    """15e: the cell's path at full size (the benchmark's bf16 draw):
+    FleetRouter, its two dense batchers (each padded prefill captured when
+    they are made) and the engine's captured decode reading the live mask.
+    After a warm-up (every decode shape captured) K7 and K5 count from 0
+    over a mix of prompts across the buckets: K7 once a MoE block of each
+    prefill and decode step (23 each), K5 once a Mamba block of each
+    prefill, no capture more, and each decode tick's routed rows 23 x 6 x
+    its live lanes. Returns the launches under the kernels-line names."""
+    import numpy as np
+    sys.path.insert(0, str(ROOT))
+    from serve_bench.reference import nemotron_h as REF
+    from repro_torch.configs import get_config
+    from repro_torch.core.systems import paper_fleet
+    from repro_torch.kernels import moe_experts as ME
+    from repro_torch.kernels import ssm_scan as SS
+    from repro_torch.serving import trace
+    from repro_torch.serving.engine import InferenceEngine
+    from repro_torch.serving.router import FleetRouter
+    m = json.loads((ROOT / "serve_bench" / "configs" /
+                    f"{NANO}.json").read_text())["model"]
+    cfg = get_config(NANO)
+    t0 = time.perf_counter()
+    w = REF.make_weights(m, torch.Generator(device="cuda").manual_seed(SEED),
+                         torch.bfloat16, "cuda")
+    engine = InferenceEngine(cfg, w, max_len=512, dtype=torch.bfloat16,
+                             device="cuda")
+    eff, perf = paper_fleet()
+    router = FleetRouter(cfg, {eff.name: eff, perf.name: perf},
+                         {eff.name: engine, perf.name: engine},
+                         policy="threshold", t_in=32, axis="in")
+    router.attach_batchers(slots=8, paged=False)
+    torch.cuda.synchronize()
+    made = time.perf_counter() - t0
+    rng = np.random.default_rng(SEED)
+
+    def serve(lengths, n):
+        for mm in lengths:
+            router.submit(rng.integers(0, cfg.vocab_size, mm,
+                                       dtype=np.int32), n)
+        router.drain()
+
+    serve((8, 40), 3)                            # warm-up: decode captured
+    captures = engine.graphs.captures
+    ME.moe_experts.launches = SS.ssd_scan.launches = 0
+    trace.TICKS.clear()
+    t1 = time.perf_counter()
+    serve((5, 17, 30, 33, 64, 100, 250, 12, 9, 300), 6)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    ticks = list(trace.TICKS)
+    decodes = [t for t in ticks if t.decode_lanes]
+    admitted = sum(t.admitted for t in ticks)
+    n_e, n_m = cfg.blocks("E"), cfg.blocks("M")
+    k7, k5 = ME.moe_experts.launches, SS.ssd_scan.launches
+    bad = [t for t in decodes if t.routed_rows != n_e * 6 * t.decode_lanes]
+    say(f"  15e served at full size through FleetRouter, 2 dense pools of 8 "
+        f"lanes, max_len 512: built in {made:.2f} s ({engine.graphs.captures}"
+        f" captures after the warm-up, {captures} before the count); "
+        f"{admitted} prefills, {len(decodes)} decode steps in {wall:.3f} s;"
+        f" K7 {k7} launches ({n_e} x {admitted + len(decodes)} expected), "
+        f"K5 {k5} ({n_m} x {admitted}); decode ticks with routed rows != "
+        f"{n_e} x 6 x lanes: {len(bad)} card={card}")
+    if engine.graphs.captures != captures:
+        fail("phase 15e: a step was captured after the warm-up")
+    if k7 != n_e * (admitted + len(decodes)) or k5 != n_m * admitted or bad:
+        fail(f"phase 15e: K7 {k7}, K5 {k5} launches for {admitted} prefills "
+             f"and {len(decodes)} decode steps; {len(bad)} ticks off")
+    del w, engine, router
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"moe_experts": k7, f"ssd_scan@{NANO}": k5}
+
+
+def _nemotron_rows(launches, errs, times):
+    """The kernels-line rows of phase 15: K7 (at the decode of 64 lanes, 32
+    live) and K5 in groups (S 512), launches from 15e's served mix."""
+    sources = {"moe_experts": (
+        "src/repro_torch/csrc/moe_experts.cu",
+        "none: the JAX package computes its MoE FFN as one product over an "
+        "(experts, capacity) buffer (src/repro/models/moe.py)"),
+        f"ssd_scan@{NANO}": ("src/repro_torch/csrc/ssm_scan.cu",
+                             "src/repro/kernels/ssm_scan.py:73")}
+    return [{"name": k, "route": "cuda", "source": sources[k][0],
+             "replaces": sources[k][1], "launches": launches[k],
+             "max_abs_err": errs[k], **times[k]} for k in sources]
+
 
 def main() -> None:
     if not (ROOT / "src" / "repro_torch" / "kernels").is_dir():
@@ -3789,6 +4075,11 @@ def main() -> None:
     import repro_torch  # noqa: F401  (sets the TF32 switches)
     from repro_torch.kernels import autotune as AT
     phase_build()
+    if sys.argv[1:] == ["--phase", "15"]:     # phase 15 alone
+        launches, errs, times = phase_nemotron(torch, card)
+        say(json.dumps({"kernels": _nemotron_rows(launches, errs, times)}))
+        say(json.dumps({"ok": True, "phase": 15}))
+        return
     errs, times = phase_kernels(torch)
     bwd_worst, train_times = phase_kernels_train(torch)
     phase_autotune(torch, card)
@@ -3806,6 +4097,7 @@ def main() -> None:
     phase_disagg_parity(torch)
     phase_disagg_serve(torch, card)
     launches.update(phase_serve_families(torch, card))
+    nano_launches, nano_errs, nano_times = phase_nemotron(torch, card)
     launches.update(phase_train(torch, card))
     phase_dryrun(torch, card)
     phase_dryrun_cost(torch, card)
@@ -3865,6 +4157,7 @@ def main() -> None:
                      "max_abs_err": errs[kname], "ms": t["ms"],
                      "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                      "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+    rows += _nemotron_rows(nano_launches, nano_errs, nano_times)
     if AT.installed() is not None:
         fail("an autotune cache is still installed at the end")
     say(f"total_s={time.perf_counter() - t0:.2f} card={card}")

@@ -26,12 +26,18 @@ _PAPER_MODULES = {
     "mistral-7b": "mistral_7b",
     "falcon-7b":  "falcon_7b",
 }
+# served configurations beyond both lists (the serving benchmark's)
+_SERVE_MODULES = {
+    "nemotron-3-nano-30b-a3b": "nemotron_3_nano_30b_a3b",
+}
 _ARCH_MODULES.update(_PAPER_MODULES)
+_ARCH_MODULES.update(_SERVE_MODULES)
 
 
 def list_archs() -> list[str]:
     """The 10 assigned architectures (dry-run / smoke matrix)."""
-    return [a for a in _ARCH_MODULES if a not in _PAPER_MODULES]
+    return [a for a in _ARCH_MODULES
+            if a not in _PAPER_MODULES and a not in _SERVE_MODULES]
 
 
 def list_paper_archs() -> list[str]:

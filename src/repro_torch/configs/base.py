@@ -18,6 +18,15 @@ class MoEConfig:
     # capacity factor for fixed-shape expert dispatch (TPU-friendly, no dynamic shapes)
     capacity_factor: float = 1.25
     router_aux_loss_coef: float = 0.01
+    # router: "softmax" (top-k of the softmax, renormalised; the capacity
+    # path) or "sigmoid" (Nemotron-H / DeepSeek-V3: top-k of sigmoid scores
+    # plus a per-expert correction bias that only selects; the dropless
+    # grouped path)
+    router: str = "softmax"
+    score_bias: bool = False      # the correction bias (selection only)
+    norm_topk_prob: bool = True   # sigmoid: the chosen scores normalised
+    routed_scale: float = 1.0     # sigmoid: weights times this
+    shared_expert_dim: int = 0    # one shared expert of this width (0: none)
 
 
 @dataclass(frozen=True)
@@ -27,6 +36,11 @@ class SSMConfig:
     expand: int = 2               # d_inner = expand * d_model
     chunk_size: int = 128         # SSD chunk length
     conv_width: int = 4           # depthwise causal conv width
+    n_groups: int = 1             # B/C groups; head h reads group h // (H / G)
+    num_heads: int = 0            # >0: d_inner = num_heads * head_dim
+
+
+BLOCK_KINDS = "ME*"
 
 
 @dataclass(frozen=True)
@@ -56,6 +70,10 @@ class ModelConfig:
     ssm: Optional[SSMConfig] = None
     # hybrid (zamba2-style): one *shared* attention block applied every k layers
     hybrid_attn_every: int = 0    # 0 = no interleaved attention
+    # hybrid (Nemotron-H-style): one block per character, each with weights
+    # of its own: M Mamba2, E MoE FFN, * attention (no MLP); "" = the
+    # family's own layer walk. Each block is h + mixer(norm(h)).
+    block_pattern: str = ""
     # encoder-decoder (whisper-style)
     encoder_layers: int = 0       # >0 => enc-dec
     encoder_seq_len: int = 0      # fixed encoder input length (audio frames)
@@ -65,6 +83,21 @@ class ModelConfig:
     # citation for the config (paper/model card)
     source: str = ""
     max_seq_len: int = 131072
+
+    def __post_init__(self):
+        # configurations read from JSON give the nested groups as mappings
+        if isinstance(self.moe, dict):
+            object.__setattr__(self, "moe", MoEConfig(**self.moe))
+        if isinstance(self.ssm, dict):
+            object.__setattr__(self, "ssm", SSMConfig(**self.ssm))
+        if self.block_pattern:
+            if len(self.block_pattern) != self.num_layers or \
+                    set(self.block_pattern) - set(BLOCK_KINDS):
+                raise ValueError(
+                    f"block_pattern {self.block_pattern!r}: one of "
+                    f"{BLOCK_KINDS!r} per layer ({self.num_layers})")
+            if self.family != "hybrid":
+                raise ValueError("block_pattern needs family 'hybrid'")
 
     @property
     def resolved_head_dim(self) -> int:
@@ -80,14 +113,48 @@ class ModelConfig:
 
     @property
     def d_inner(self) -> int:
-        return (self.ssm.expand * self.d_model) if self.ssm else 0
+        if not self.ssm:
+            return 0
+        if self.ssm.num_heads:
+            return self.ssm.num_heads * self.ssm.head_dim
+        return self.ssm.expand * self.d_model
+
+    def blocks(self, kind: str) -> int:
+        """How many blocks of ``block_pattern`` are of ``kind``."""
+        return self.block_pattern.count(kind)
+
+    def _pattern_params(self, active: bool) -> int:
+        """Parameters of a ``block_pattern`` model (``active``: the routed
+        experts a token reads, not all of them)."""
+        d, hd = self.d_model, self.resolved_head_dim
+        di, s = self.d_inner, self.ssm
+        n_mat = 3 if self.activation in ("swiglu", "geglu") else 2
+        mamba = (d * (2 * di + 2 * s.n_groups * s.state_dim + self.ssm_heads)
+                 + (s.conv_width + 1) * (di + 2 * s.n_groups * s.state_dim)
+                 + 3 * self.ssm_heads + di + di * d)
+        attn = (d * self.num_heads * hd + 2 * d * self.num_kv_heads * hd
+                + self.num_heads * hd * d)
+        total = 0
+        if self.moe is not None:
+            m = self.moe
+            n = m.num_experts_per_tok if active else m.num_experts
+            moe = (n * n_mat * d * self.d_ff + d * m.num_experts
+                   + (m.num_experts if m.score_bias else 0)
+                   + n_mat * d * m.shared_expert_dim)
+            total += self.blocks("E") * moe
+        total += self.blocks("M") * mamba + self.blocks("*") * attn
+        emb = self.vocab_size * d * (1 if self.tie_embeddings else 2)
+        return int(emb + d + total + self.num_layers * d)
 
     @property
     def ssm_heads(self) -> int:
         return self.d_inner // self.ssm.head_dim if self.ssm else 0
 
     def param_count(self) -> int:
-        """Approximate parameter count (used by the perf/energy model)."""
+        """Approximate parameter count (used by the perf/energy model); exact
+        for a ``block_pattern`` model."""
+        if self.block_pattern:
+            return self._pattern_params(active=False)
         d, L, V = self.d_model, self.num_layers, self.vocab_size
         hd = self.resolved_head_dim
         emb = V * d * (1 if self.tie_embeddings else 2)
@@ -131,6 +198,8 @@ class ModelConfig:
 
     def active_param_count(self) -> int:
         """Parameters touched per token (MoE: only routed experts)."""
+        if self.block_pattern:
+            return self._pattern_params(active=True)
         if self.family != "moe" or self.moe is None:
             return self.param_count()
         d, L = self.d_model, self.num_layers
@@ -167,6 +236,7 @@ class ModelConfig:
             encoder_seq_len=min(64, self.encoder_seq_len) if self.encoder_seq_len else 0,
             num_vision_tokens=min(16, self.num_vision_tokens) if self.num_vision_tokens else 0,
             hybrid_attn_every=min(2, self.hybrid_attn_every) if self.hybrid_attn_every else 0,
+            block_pattern=self.block_pattern[:2],
             max_seq_len=2048,
         )
 

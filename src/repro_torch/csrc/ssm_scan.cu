@@ -254,21 +254,32 @@ __device__ __forceinline__ void store_row(__nv_bfloat16* p,
 }
 
 // ------------------------------------------------ staging
-// dst row r (row stride ld) <- src row r0 + r of the row-major (., W) tile
-// at src, by cp.async; rows at or past `valid` are zeros. src row 0 exists.
-// The caller waits (cp_async_wait_all) and synchronises.
+// dst row r (row stride ld) <- src row r0 + r of the rows of W values at
+// src, `lds` apart (0: W, a row-major (., W) tile), by cp.async; rows at or
+// past `valid` are zeros. src row 0 exists. The caller waits
+// (cp_async_wait_all) and synchronises.
 template <typename T>
 __device__ void stage_rows(T* dst, int ld, const T* __restrict__ src, int r0,
-                           int W, int valid, int rows) {
+                           int W, int valid, int rows, int lds = 0) {
   constexpr int V = vec_len<T>();
   const int per_row = W / V;
+  const size_t stride = lds ? lds : W;
   for (int c = threadIdx.x; c < rows * per_row; c += blockDim.x) {
     const int r = c / per_row;
     const int col = (c - r * per_row) * V;
     const bool ok = r0 + r < valid;
     cp_async16(dst + (size_t)r * ld + col,
-               ok ? src + (size_t)(r0 + r) * W + col : src, ok ? 16 : 0);
+               ok ? src + (size_t)(r0 + r) * stride + col : src, ok ? 16 : 0);
   }
+}
+
+// Row s0 of lane b's B or C for head h: (B, S, G, N), head h reading group
+// h / (H / G); at G = 1 the (B, S, N) layout. Rows lie G·N apart.
+template <typename T, int N>
+__device__ __forceinline__ const T* bc_rows(const T* __restrict__ m, int b,
+                                            int S, int s0, int G, int h,
+                                            int H) {
+  return m + (((size_t)b * S + s0) * G + h / (H / G)) * N;
 }
 
 // dst row r <- src row r, times w[r] when w is given, rounded to T; rows at
@@ -337,7 +348,7 @@ __global__ void __launch_bounds__(kTileThreads)
 ssd_chunk_state_kernel(const T* __restrict__ x, const float* __restrict__ dt,
                        const float* __restrict__ A, const T* __restrict__ Bm,
                        float* __restrict__ states, float* __restrict__ totals,
-                       int H, int S, int L) {
+                       int H, int S, int L, int G) {
   using M = Mma<T>;
   constexpr int LP = P + kPadE;   // row stride of the x * w tile
   constexpr int LN = N + kPadE;   // row stride of the B tile
@@ -359,7 +370,8 @@ ssd_chunk_state_kernel(const T* __restrict__ x, const float* __restrict__ dt,
   T* xw_lo = M::kSplit ? bs + (size_t)L * LN : nullptr;   // [L][LP]
 
   const size_t bh = (size_t)b * H + h;
-  stage_rows<T>(bs, LN, Bm + ((size_t)b * S + s0) * N, 0, N, valid, L);
+  stage_rows<T>(bs, LN, bc_rows<T, N>(Bm, b, S, s0, G, h, H), 0, N, valid, L,
+                G * N);
   chunk_cumsum(dt + bh * S + s0, A[h], dts, cum, valid, L);
   const double total = cum[L - 1];
   for (int j = threadIdx.x; j < L; j += blockDim.x) {
@@ -451,7 +463,7 @@ __global__ void __launch_bounds__(kTileThreads, 1)
 ssd_output_kernel(const T* __restrict__ x, const float* __restrict__ dt,
                   const float* __restrict__ A, const T* __restrict__ Bm,
                   const T* __restrict__ Cm, const float* __restrict__ states,
-                  T* __restrict__ y, int H, int S) {
+                  T* __restrict__ y, int H, int S, int G) {
   using M = Mma<T>;
   constexpr int R = slab_rows(L);
   constexpr int NA = N + kPadE;   // row stride of the C, B and state tiles
@@ -478,8 +490,10 @@ ssd_output_kernel(const T* __restrict__ x, const float* __restrict__ dt,
 
   const size_t bh = (size_t)b * H + h;
   const size_t row0 = (size_t)b * S + s0;
-  stage_rows<T>(cs, NA, Cm + row0 * N, r0, N, valid, R);
-  stage_rows<T>(bs, NA, Bm + row0 * N, 0, N, valid, J);
+  stage_rows<T>(cs, NA, bc_rows<T, N>(Cm, b, S, s0, G, h, H), r0, N, valid,
+                R, G * N);
+  stage_rows<T>(bs, NA, bc_rows<T, N>(Bm, b, S, s0, G, h, H), 0, N, valid, J,
+                G * N);
   stage_rows<T>(xs, LP, x + (bh * S + s0) * P, 0, P, valid, J);
   if (c > 0) {                    // S_in of chunk 0 is 0
     stage_convert<T, float>(ss, ss_lo, NA, states + (bh * nc + c) * P * N,
@@ -780,8 +794,9 @@ template <typename T, int P, int N, int L>
 static int launch_ssd(const void* x, const float* dt, const float* A,
                       const void* Bm, const void* Cm, void* y, float* fs,
                       float* states, float* totals, int B, int H, int S,
-                      int passes, cudaStream_t stream) {
+                      int passes, int G, cudaStream_t stream) {
   constexpr bool kF32 = std::is_same<T, float>::value;
+  if (G < 1 || H % G || (kF32 && G != 1)) return (int)cudaErrorInvalidValue;
   const int nc = (S + L - 1) / L;
   const T* xt = static_cast<const T*>(x);
   if (nc > 0 && (passes & 1)) {
@@ -797,7 +812,7 @@ static int launch_ssd(const void* x, const float* dt, const float* A,
       auto kern = ssd_chunk_state_kernel<T, P, N>;
       if (!raise_state_smem_limit<T, P, N>()) return (int)cudaGetLastError();
       kern<<<dim3(nc, H, B), kTileThreads, smem, stream>>>(
-          xt, dt, A, static_cast<const T*>(Bm), states, totals, H, S, L);
+          xt, dt, A, static_cast<const T*>(Bm), states, totals, H, S, L, G);
     }
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
@@ -831,7 +846,7 @@ static int launch_ssd(const void* x, const float* dt, const float* A,
       kern<<<dim3(nc * (L / slab_rows(L)), H, B), 2 * slab_rows(L), smem,
              stream>>>(xt, dt, A, static_cast<const T*>(Bm),
                        static_cast<const T*>(Cm), states,
-                       static_cast<T*>(y), H, S);
+                       static_cast<T*>(y), H, S, G);
     }
   }
   return (int)cudaGetLastError();
@@ -843,20 +858,23 @@ using namespace repro_torch;
 
 // K5. dtype: 0 = float32, 1 = bfloat16 (x, B, C and y); dt, A and the final
 // state are float32. P must be 32 or 64, state_dim 32, 64 or 128, chunk 32
-// or 128. Workspace, float32: states (B, H, ceil(S / chunk), P, state_dim)
-// and totals (B, H, ceil(S / chunk)). passes: 7 for a call (see
-// launch_ssd). Returns the cudaError_t of the launches (0 on success).
+// or 128. B and C are (B, S, groups, state_dim): head h reads group
+// h / (H / groups), groups dividing H (bfloat16 only when groups > 1;
+// groups 1 is the (B, S, state_dim) layout). Workspace, float32: states
+// (B, H, ceil(S / chunk), P, state_dim) and totals (B, H, ceil(S / chunk)).
+// passes: 7 for a call (see launch_ssd). Returns the cudaError_t of the
+// launches (0 on success).
 extern "C" int repro_ssd_scan(int dtype, int state_dim, const void* x,
                               const float* dt, const float* A, const void* Bm,
                               const void* Cm, void* y, float* final_state,
                               float* states, float* totals, int B, int H,
-                              int S, int P, int chunk, int passes,
+                              int S, int P, int chunk, int passes, int groups,
                               void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define REPRO_SSD(T, PP, NN, LL)                                             \
   if (P == PP && state_dim == NN && chunk == LL)                             \
   return launch_ssd<T, PP, NN, LL>(x, dt, A, Bm, Cm, y, final_state, states, \
-                                   totals, B, H, S, passes, st)
+                                   totals, B, H, S, passes, groups, st)
 #define REPRO_SSD_N(T, PP, LL)                                               \
   REPRO_SSD(T, PP, 32, LL); REPRO_SSD(T, PP, 64, LL); REPRO_SSD(T, PP, 128, LL)
 #define REPRO_SSD_ALL(T)                                                     \

@@ -53,8 +53,13 @@ _SIGNATURES = {
     # max_blocks window; softcap scale; the stream
     "repro_paged_chunk_attention": [_I, _I] + [_P] * 7 + [_I] * 6
     + [_F, _F] + [_P],
+    # dtype, N; x dt A B C y final_state states totals; B H S P chunk
+    # passes groups; the stream
     "repro_ssd_scan": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                       _I, _I, _I, _P],
+                       _I, _I, _I, _I, _P],
+    # x w_up w_down token slot gate offsets tile_start h y; E d f tiles
+    # passes; the stream
+    "repro_moe_experts": [_P] * 10 + [_I] * 5 + [_P],
     # dtype, N; x dt A B C dy dfinal, the forward's workspace (states,
     # totals), the scratch (dstates, dB/dC shares, steps, dA shares), dx
     # ddt dA dB dC; B H S P chunk; the stream

@@ -32,6 +32,7 @@ from repro_torch.kernels import autotune as _at
 from repro_torch.kernels import chunk_attention as _ca
 from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import moe_experts as _me
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import ssm_scan as _ss
 
@@ -207,3 +208,13 @@ def ssd_decode_step(state, x, dt, A, Bvec, Cvec):
     # single-token state update: plain torch everywhere, as in the reference
     # (elementwise work and tiny products, no kernel win at (B, H, P, N))
     return _ref.ssd_decode_step(state, x, dt, A, Bvec, Cvec)
+
+
+def moe_experts(x, w_up, w_down, routes, *, backend: str = "auto"):
+    """The routed experts of a dropless MoE layer over the rows of
+    ``routes`` (``moe_experts.route_table``): K7 on the card, the plain
+    expert-by-expert version otherwise. See ``moe_experts.moe_experts``."""
+    if not _use_kernel(x, backend):
+        return _me.moe_experts_ref(x, w_up, w_down, routes)
+    _refuse_grad("moe_experts", x, w_up, w_down)
+    return _me.moe_experts(x, w_up, w_down, routes)

@@ -263,7 +263,9 @@ def ssd_scan_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     """Chunked SSD: the same algebra as the Hopper kernel (per chunk a masked
     decay-weighted C B^T, att @ x, and the carried state), in batched
     matmuls. The sequential ``ssd_scan`` is the oracle for both. S is padded
-    to the chunk with dt = 0: an identity step with zero output.
+    to the chunk with dt = 0: an identity step with zero output. B and C are
+    (B, S, N), or (B, S, G, N) with head h reading group h // (H / G); the
+    first is the second at G = 1.
 
     The within-chunk cumsum of dt * A runs in float64, as in the kernel:
     the decays exp(cum_i - cum_j) take the difference of two sums that reach
@@ -271,56 +273,70 @@ def ssd_scan_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     form's main error (about 2e-5 on y at S = 512, N = 128, the whole f32
     budget). Everything else is float32."""
     B, H, S, P = x.shape
-    N = Bmat.shape[-1]
+    if Bmat.dim() == 3:
+        Bmat, Cmat = Bmat[:, :, None], Cmat[:, :, None]
+    G, N = Bmat.shape[2], Bmat.shape[3]
+    R = H // G                                             # heads a group
     pad = (-S) % chunk
     if pad:
         x = F.pad(x, (0, 0, 0, pad))
         dt = F.pad(dt, (0, pad))
-        Bmat = F.pad(Bmat, (0, 0, 0, pad))
-        Cmat = F.pad(Cmat, (0, 0, 0, pad))
+        Bmat = F.pad(Bmat, (0, 0, 0, 0, 0, pad))
+        Cmat = F.pad(Cmat, (0, 0, 0, 0, 0, pad))
     Sp = S + pad
     nc = Sp // chunk
-    xf = x.float().reshape(B, H, nc, chunk, P)
-    dtf = dt.float().reshape(B, H, nc, chunk)
-    Af = A.float()
-    Bf = Bmat.float().reshape(B, nc, chunk, N)
-    Cf = Cmat.float().reshape(B, nc, chunk, N)
+    xf = x.float().reshape(B, G, R, nc, chunk, P)
+    dtf = dt.float().reshape(B, G, R, nc, chunk)
+    Af = A.float().reshape(G, R)
+    Bf = Bmat.float().reshape(B, nc, chunk, G, N)
+    Cf = Cmat.float().reshape(B, nc, chunk, G, N)
 
-    g = dtf * Af[None, :, None, None]                      # (B, H, nc, L)
+    g = dtf * Af[None, :, :, None, None]                   # (B, G, R, nc, L)
     cum = torch.cumsum(g.double(), dim=-1)                 # float64
-    seg = cum[..., :, None] - cum[..., None, :]            # (B, H, nc, L, L)
+    seg = cum[..., :, None] - cum[..., None, :]            # (..., nc, L, L)
     ii = torch.arange(chunk, device=x.device)
     causal = ii[:, None] >= ii[None, :]
     # clamp BEFORE exp: masked (j > i) entries have seg > 0 and can overflow
     seg = torch.where(causal, seg, 0.0).float()
     decay = torch.where(causal, torch.exp(seg), 0.0)
-    cb = torch.einsum("bcln,bcmn->bclm", Cf, Bf)           # (B, nc, L, L)
-    att = cb[:, None] * decay * dtf[..., None, :]          # (B, H, nc, L, L)
-    y_intra = torch.einsum("bhclm,bhcmp->bhclp", att, xf)
+    cb = torch.einsum("bclgn,bcmgn->bgclm", Cf, Bf)        # (B, G, nc, L, L)
+    att = cb[:, :, None] * decay * dtf[..., None, :]       # (B, G, R, nc, L, L)
+    y_intra = torch.einsum("bgrclm,bgrcmp->bgrclp", att, xf)
 
     # inter-chunk state carry, a loop over the nc chunks
-    total = cum[..., -1]                                   # (B, H, nc)
-    w = torch.exp((total[..., None] - cum).float()) * dtf  # (B, H, nc, L)
-    chunk_state = torch.einsum("bhclp,bcln->bhcpn", xf * w[..., None], Bf)
-    state = torch.zeros((B, H, P, N), dtype=torch.float32, device=x.device)
+    total = cum[..., -1]                                   # (B, G, R, nc)
+    w = torch.exp((total[..., None] - cum).float()) * dtf  # (B, G, R, nc, L)
+    chunk_state = torch.einsum("bgrclp,bclgn->bgrcpn", xf * w[..., None], Bf)
+    state = torch.zeros((B, G, R, P, N), dtype=torch.float32, device=x.device)
     in_states = []                                         # INCOMING states
     for c in range(nc):
         in_states.append(state)
-        state = state * torch.exp(total[:, :, c].float())[..., None, None] \
-            + chunk_state[:, :, c]
+        state = state * torch.exp(total[..., c].float())[..., None, None] \
+            + chunk_state[:, :, :, c]
     y_inter = torch.exp(cum.float())[..., None] * torch.einsum(
-        "bcln,bhcpn->bhclp", Cf, torch.stack(in_states, dim=2))
+        "bclgn,bgrcpn->bgrclp", Cf, torch.stack(in_states, dim=3))
     y = (y_intra + y_inter).reshape(B, H, Sp, P)[:, :, :S]
-    return y.to(x.dtype), state
+    return y.to(x.dtype), state.reshape(B, H, P, N)
 
 
 def ssd_decode_step(state: torch.Tensor, x: torch.Tensor, dt: torch.Tensor,
                     A: torch.Tensor, Bvec: torch.Tensor, Cvec: torch.Tensor
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One-token SSD state update. state (B, H, P, N), x (B, H, P), dt (B, H),
-    Bvec/Cvec (B, N). Returns (y (B, H, P) in x.dtype, new state in
-    state.dtype)."""
+    Bvec/Cvec (B, N), or (B, G, N) with head h reading group h // (H / G)
+    (the first is the second at G = 1). Returns (y (B, H, P) in x.dtype,
+    new state in state.dtype)."""
+    Bn, H, P, N = state.shape
+    Cg = Cvec.float().reshape(Bn, -1, N)                   # (B, G, N)
+    G = Cg.shape[1]
     decay = torch.exp(dt.float() * A.float()[None, :])
+    new = state.float() * decay[..., None, None]           # a new tensor
+    grouped = new.view(Bn, G, H // G, P, N)
+    # + dt x Bᵀ in place: one pass over the state, no (B, H, P, N) temporary
+    grouped.addcmul_((x.float() * dt[..., None]).reshape(Bn, G, H // G, P, 1),
+                     Bvec.float().reshape(Bn, G, 1, 1, N))
+    y = torch.einsum("bgrpn,bgn->bgrp", grouped, Cg)
+    return y.reshape(Bn, H, P).to(x.dtype), new.to(state.dtype)
     upd = torch.einsum("bhp,bn->bhpn", x.float() * dt[..., None],
                        Bvec.float())
     new = state.float() * decay[..., None, None] + upd

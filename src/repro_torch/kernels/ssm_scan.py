@@ -109,9 +109,11 @@ def _check(x, dt, A, Bmat, Cmat, chunk, name: str = "ssd_scan") -> None:
             raise ValueError(f"{name}: inputs must be contiguous")
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: inputs must be 16-byte aligned")
-    N = Bmat.shape[-1] if Bmat.dim() == 3 else -1
-    if dt.shape != (B, H, S) or A.shape != (H,) \
-            or Bmat.shape != (B, S, N) or Cmat.shape != (B, S, N):
+    N = Bmat.shape[-1] if Bmat.dim() in (3, 4) else -1
+    G = Bmat.shape[2] if Bmat.dim() == 4 else 1
+    bc = (B, S, N) if Bmat.dim() == 3 else (B, S, G, N)
+    if dt.shape != (B, H, S) or A.shape != (H,) or G < 1 or H % G \
+            or Bmat.shape != bc or Cmat.shape != bc:
         raise ValueError(f"{name}: shapes x {tuple(x.shape)}, dt "
                          f"{tuple(dt.shape)}, A {tuple(A.shape)}, Bmat "
                          f"{tuple(Bmat.shape)}, Cmat {tuple(Cmat.shape)}")
@@ -120,13 +122,17 @@ def _check(x, dt, A, Bmat, Cmat, chunk, name: str = "ssd_scan") -> None:
                          f"dim {N} not in {STATE_DIMS}")
     if chunk not in CHUNKS:
         raise ValueError(f"{name}: chunk {chunk} not in {CHUNKS}")
+    if G > 1 and (x.dtype != torch.bfloat16 or name != "ssd_scan"):
+        raise ValueError(f"{name}: grouped B and C (G = {G}) run on the "
+                         f"bfloat16 forward kernel only")
 
 
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
              Bmat: torch.Tensor, Cmat: torch.Tensor, *,
              chunk: int = 128, ws=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (B, H, S, P); dt (B, H, S) float32; A (H,) float32, negative;
-    Bmat, Cmat (B, S, N). Returns (y (B, H, S, P) in x.dtype, final state
+    Bmat, Cmat (B, S, N), or (B, S, G, N) with head h reading group
+    h // (H / G) (bfloat16 only on the card). Returns (y (B, H, S, P) in x.dtype, final state
     (B, H, P, N) float32).
 
     On a CUDA tensor this launches the Hopper kernel (three device kernels,
@@ -193,6 +199,7 @@ def launch_passes(x, dt, A, Bmat, Cmat, *, chunk: int = 128,
         DTYPE_CODES[x.dtype], N, x.data_ptr(), dt.data_ptr(), A.data_ptr(),
         Bmat.data_ptr(), Cmat.data_ptr(), y.data_ptr(), state.data_ptr(),
         states.data_ptr(), totals.data_ptr(), B, H, S, P, chunk, passes,
+        Bmat.shape[2] if Bmat.dim() == 4 else 1,
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(code, "ssd_scan")
     return y, state, True

@@ -33,6 +33,16 @@ per-row float32 scales (``k_scale``/``v_scale``, ``kp_scale``/``vp_scale``);
 every step function takes the int8 branch when the cache holds those keys,
 as the reference does. MoE layers route with capacity in ``prefill`` and
 ``forward_train`` and dropless everywhere else, as the reference's do.
+
+A hybrid config with a ``block_pattern`` (Nemotron-H) walks one block per
+character, each with weights of its own: M a Mamba2 mixer, E a
+sigmoid-routed MoE FFN (dropless everywhere, ``moe.moe_apply_sigmoid``),
+* attention; each block is h + mixer(norm(h)). Its dense cache holds conv
+and SSM state for the M blocks, K/V (ak/av) for the * blocks, ``live``
+(B,) bool, set by ``prefill`` and cleared by the batcher at retirement,
+which ``decode_step`` reads (a lane that is not live routes to no
+expert), and ``moe_stats`` (2,) int64, the routed rows and the experts
+touched of the last step, summed over its E blocks.
 """
 from __future__ import annotations
 
@@ -92,6 +102,18 @@ def _mamba_layer_init(gen: torch.Generator, cfg: ModelConfig, dtype, device):
             "mamba": SSM.mamba_init(gen, cfg, dtype, device)}
 
 
+def _pattern_layer_init(gen: torch.Generator, cfg: ModelConfig, kind: str,
+                        dtype, device):
+    if kind == "M":
+        return _mamba_layer_init(gen, cfg, dtype, device)
+    p = {"norm": L.norm_init(cfg.norm, cfg.d_model, dtype, device)}
+    if kind == "E":
+        p["moe"] = MOE.moe_init(gen, cfg, dtype, device)
+    else:
+        p["attn"] = ATT.attn_init(gen, cfg, dtype, device)
+    return p
+
+
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 dtype=torch.float32, device="cpu",
                 max_positions: Optional[int] = None) -> Params:
@@ -112,6 +134,9 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     if cfg.family in KV_FAMILIES:
         params["layers"] = [_dense_layer_init(g, cfg, dtype, device)
                             for _ in range(cfg.num_layers)]
+    elif cfg.block_pattern:
+        params["layers"] = [_pattern_layer_init(g, cfg, kind, dtype, device)
+                            for kind in cfg.block_pattern]
     elif cfg.family in ("ssm", "hybrid"):
         params["layers"] = [_mamba_layer_init(g, cfg, dtype, device)
                             for _ in range(cfg.num_layers)]
@@ -242,6 +267,20 @@ def _mamba_block(lp, cfg: ModelConfig, h, backend: str):
     return h + SSM.mamba_apply(lp["mamba"], cfg, x, backend=backend)
 
 
+def _pattern_block(lp, cfg: ModelConfig, kind: str, h, positions,
+                   backend: str):
+    """One block of a ``block_pattern`` model over a whole sequence."""
+    x = L.norm_apply(cfg.norm, lp["norm"], h)
+    if kind == "M":
+        return h + SSM.mamba_apply(lp["mamba"], cfg, x, backend=backend)
+    if kind == "E":
+        return h + MOE.moe_apply_sigmoid(lp["moe"], cfg, x,
+                                         backend=backend)[0]
+    return h + ATT.self_attention(lp["attn"], cfg, x, positions=positions,
+                                  causal=True, window=cfg.sliding_window,
+                                  backend=backend)
+
+
 def _shared_attn_block(params, cfg: ModelConfig, h, positions, backend: str):
     lp = params["shared_attn"]
     a = L.norm_apply(cfg.norm, lp["attn_norm"], h)
@@ -282,6 +321,12 @@ def forward_train(params: Params, cfg: ModelConfig,
             h, aux = block(lp, h)
             auxs.append(aux)
         return _logits(params, cfg, h), torch.stack(auxs).sum()
+
+    if cfg.block_pattern:
+        for kind, lp in zip(cfg.block_pattern, params["layers"]):
+            h = _maybe_remat(lambda p, x, kind=kind: _pattern_block(
+                p, cfg, kind, x, positions, backend), remat)(lp, h)
+        return _logits(params, cfg, h), zero
 
     block = _maybe_remat(lambda lp, x: _mamba_block(lp, cfg, x, backend),
                          remat)
@@ -367,13 +412,23 @@ def init_cache(cfg: ModelConfig, batch_size: int, max_len: int,
                                            device=device)
         return cache
     s = cfg.ssm
-    ch = cfg.d_inner + 2 * s.state_dim
-    cache["conv"] = torch.zeros((cfg.num_layers, batch_size,
+    ch = cfg.d_inner + 2 * s.n_groups * s.state_dim
+    n_mamba = cfg.blocks("M") if cfg.block_pattern else cfg.num_layers
+    cache["conv"] = torch.zeros((n_mamba, batch_size,
                                  s.conv_width - 1, ch), **z)
-    cache["ssm"] = torch.zeros((cfg.num_layers, batch_size, cfg.ssm_heads,
+    cache["ssm"] = torch.zeros((n_mamba, batch_size, cfg.ssm_heads,
                                 s.head_dim, s.state_dim), dtype=torch.float32,
                                device=device)
-    if cfg.family == "hybrid":
+    if cfg.block_pattern:
+        shape = (cfg.blocks("*"), batch_size, cfg.num_kv_heads, max_len, hd)
+        cache["ak"] = torch.zeros(shape, **z)
+        cache["av"] = torch.zeros(shape, **z)
+        cache["live"] = torch.zeros((batch_size,), dtype=torch.bool,
+                                    device=device)
+        if cfg.blocks("E"):
+            cache["moe_stats"] = torch.zeros((2,), dtype=torch.int64,
+                                             device=device)
+    elif cfg.family == "hybrid":
         n_attn = sum(1 for *_, a in _hybrid_segments(cfg) if a)
         shape = (n_attn, batch_size, cfg.num_kv_heads, max_len, hd)
         cache["ak"] = torch.zeros(shape, **z)
@@ -413,6 +468,34 @@ def _recurrent_layers(params: Params, cfg: ModelConfig, h: torch.Tensor,
                                      cache["av"][attn_i])
             h = _mlp_block(lp, cfg, h)
             attn_i += 1
+    return h
+
+
+def _pattern_layers(params: Params, cfg: ModelConfig, h: torch.Tensor,
+                    cache, mamba_layer, attention, moe_layer) -> torch.Tensor:
+    """The ``block_pattern`` walk shared by prefill and decode:
+    ``mamba_layer(mp, x, i)`` (the i-th M block; writes its states),
+    ``attention(ap, x, k_cache, v_cache)`` (the i-th * block on its ak/av
+    slot) and ``moe_layer(mp, x)`` -> (y, routed rows, experts touched);
+    the E blocks' counts are summed into ``moe_stats``."""
+    counts = {"M": 0, "*": 0, "E": 0}
+    rows, touched = [], []
+    for kind, lp in zip(cfg.block_pattern, params["layers"]):
+        x = L.norm_apply(cfg.norm, lp["norm"], h)
+        if kind == "M":
+            h = h + mamba_layer(lp["mamba"], x, counts["M"])
+        elif kind == "*":
+            i = counts["*"]
+            h = h + attention(lp["attn"], x, cache["ak"][i], cache["av"][i])
+        else:
+            y, r, t = moe_layer(lp["moe"], x)
+            h = h + y
+            rows.append(r)
+            touched.append(t)
+        counts[kind] += 1
+    if rows:
+        cache["moe_stats"].copy_(torch.stack([torch.stack(rows).sum(),
+                                              torch.stack(touched).sum()]))
     return h
 
 
@@ -478,11 +561,17 @@ def _prefill_audio(params: Params, cfg: ModelConfig, batch, cache, *,
 
 
 def prefill(params: Params, cfg: ModelConfig, batch, cache, *,
-            backend: str = "auto"):
+            backend: str = "auto", n_valid: Optional[torch.Tensor] = None):
     """Process the whole prompt, fill the cache in place. batch["tokens"]
     (B, S), with batch["vision"] (VLM) or batch["frames"] (audio). Returns
-    (last_logits (B, V), cache)."""
+    (last_logits (B, V), cache). ``n_valid`` (0-d int, device; a
+    ``block_pattern`` model): the prompt is the first n_valid tokens and the
+    rest padding, which leaves every state as it was and routes to no
+    expert, so one captured step serves every prompt up to S; the logits
+    are position n_valid - 1's and the cache's length is n_valid."""
     _check_family(cfg)
+    if n_valid is not None and not cfg.block_pattern:
+        raise ValueError("a padded prefill needs a block_pattern model")
     if cfg.family == "audio":
         return _prefill_audio(params, cfg, batch, cache, backend=backend)
     tokens = batch["tokens"]
@@ -495,8 +584,8 @@ def prefill(params: Params, cfg: ModelConfig, batch, cache, *,
     positions = _positions(cfg, B, S, n_vis, tokens.device)
     if cfg.family in ("ssm", "hybrid"):
         def mamba_layer(mp, x, i):
-            y, conv_st, ssm_st = SSM.mamba_apply_with_state(mp, cfg, x,
-                                                            backend=backend)
+            y, conv_st, ssm_st = SSM.mamba_apply_with_state(
+                mp, cfg, x, backend=backend, n_valid=n_valid)
             cache["conv"][i].copy_(conv_st)                 # in place
             cache["ssm"][i].copy_(ssm_st)                   # in place
             return y
@@ -507,8 +596,17 @@ def prefill(params: Params, cfg: ModelConfig, batch, cache, *,
                                          window=cfg.sliding_window,
                                          backend=backend)
 
-        h = _recurrent_layers(params, cfg, h, cache, mamba_layer,
-                              shared_attention)
+        if cfg.block_pattern:
+            live = None if n_valid is None else \
+                (torch.arange(S, device=h.device) < n_valid).expand(B, S)
+            h = _pattern_layers(
+                params, cfg, h, cache, mamba_layer, shared_attention,
+                lambda mp, x: MOE.moe_apply_sigmoid(mp, cfg, x, live=live,
+                                                    backend=backend))
+            cache["live"].fill_(True)                       # in place
+        else:
+            h = _recurrent_layers(params, cfg, h, cache, mamba_layer,
+                                  shared_attention)
     else:
         for i, lp in enumerate(params["layers"]):
             a = L.norm_apply(cfg.norm, lp["attn_norm"], h)
@@ -519,6 +617,10 @@ def prefill(params: Params, cfg: ModelConfig, batch, cache, *,
                 **_scales(cache, i))
             # MoE: capacity dispatch over the whole prompt
             h = _mlp_block(lp, cfg, h, dropless=False)
+    if n_valid is not None:
+        cache["pos"].copy_(n_valid)                         # in place
+        last = (n_valid - 1).reshape(1).long()
+        return _logits(params, cfg, h.index_select(1, last)[:, 0]), cache
     cache["pos"].fill_(S)                                   # in place
     return _logits(params, cfg, h[:, -1]), cache
 
@@ -544,8 +646,14 @@ def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor, cache,
                 ap, cfg, x, positions=positions, k_cache=kc, v_cache=vc,
                 kv_len=kv_len, window=cfg.sliding_window, backend=backend)
 
-        h = _recurrent_layers(params, cfg, h, cache, mamba_layer,
-                              shared_attention)
+        if cfg.block_pattern:
+            h = _pattern_layers(
+                params, cfg, h, cache, mamba_layer, shared_attention,
+                lambda mp, x: MOE.moe_apply_sigmoid(
+                    mp, cfg, x, live=cache["live"], backend=backend))
+        else:
+            h = _recurrent_layers(params, cfg, h, cache, mamba_layer,
+                                  shared_attention)
     elif cfg.family == "audio":
         h = h + params["dec_pos"]["emb"][pos.long()][:, None, :]
 

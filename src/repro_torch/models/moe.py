@@ -14,16 +14,30 @@ buffer slot takes one kept token plus exact zeros from dropped ones, and
 each output row is zero plus its k = 2 weighted expert outputs, and
 floating-point addition is commutative. A change that breaks either fact
 needs a deterministic scatter.
+
+A sigmoid router (``moe.router == "sigmoid"``, Nemotron-H) takes the
+dropless grouped path instead (``moe_apply_sigmoid``): scores =
+sigmoid(x W_r) in float32, the top k of scores + a correction bias (which
+only selects), the chosen scores normalised and scaled; the (token,
+choice) rows sorted by expert on the device and only those computed
+(``ops.moe_experts``: K7 on the card), each token's k outputs summed in
+a fixed order, plus a shared expert. Tokens of dead lanes route to no
+expert. Expert weights: ``w_up`` (E, f, d) and ``w_down`` (E, d, f), each
+expert's rows its output channels.
 """
 from __future__ import annotations
 
 import os
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import moe_experts as ME
+from repro_torch.kernels import ops
 from repro_torch.models import layers as L
+from repro_torch.serving.trace import span
 
 NUM_DISPATCH_GROUPS = 16     # the reference's data-axis groups
 
@@ -31,6 +45,8 @@ NUM_DISPATCH_GROUPS = 16     # the reference's data-axis groups
 def moe_init(gen: torch.Generator, cfg: ModelConfig, dtype, device):
     E, d, ff = cfg.moe.num_experts, cfg.d_model, cfg.d_ff
     scale = d ** -0.5
+    if cfg.moe.router == "sigmoid":
+        return _sigmoid_init(gen, cfg, dtype, device)
     p = {"router": {"w": L._normal(gen, (d, E), scale, dtype, device)},
          "up": L._normal(gen, (E, d, ff), scale, dtype, device),
          "down": L._normal(gen, (E, ff, d), ff ** -0.5, dtype, device)}
@@ -152,3 +168,68 @@ def _moe_apply_grouped(params, cfg: ModelConfig, x: torch.Tensor):
     y = torch.stack([_combine(out[g].reshape(E * Cg, d), meta, Tg)
                      for g, (_, meta) in enumerate(groups)])
     return y.reshape(B, S, d), aux
+
+
+# --------------------------------------------------- sigmoid router, dropless
+def _sigmoid_init(gen: torch.Generator, cfg: ModelConfig, dtype, device):
+    m = cfg.moe
+    E, d, ff = m.num_experts, cfg.d_model, cfg.d_ff
+    p = {"router": {"w": L._normal(gen, (d, E), d ** -0.5, dtype, device)},
+         "w_up": L._normal(gen, (E, ff, d), d ** -0.5, dtype, device),
+         "w_down": L._normal(gen, (E, d, ff), ff ** -0.5, dtype, device)}
+    if m.score_bias:
+        p["router"]["bias"] = torch.zeros((E,), dtype=torch.float32,
+                                          device=device)
+    if m.shared_expert_dim:
+        fs = m.shared_expert_dim
+        p["shared"] = {"up": L.dense_init(gen, d, fs, dtype, device),
+                       "down": L.dense_init(gen, fs, d, dtype, device)}
+    return p
+
+
+def route_sigmoid(params, cfg: ModelConfig, xt: torch.Tensor):
+    """xt (T, d) -> (expert ids (T, k), weights (T, k) float32): the top k
+    of sigmoid(x W_r) + bias, weighted by their scores, normalised and
+    scaled."""
+    m = cfg.moe
+    scores = torch.sigmoid(xt.float() @ params["router"]["w"].float())
+    sel = scores + params["router"]["bias"] if "bias" in params["router"] \
+        else scores
+    idx = torch.topk(sel, m.num_experts_per_tok, dim=-1).indices
+    w = scores.gather(1, idx)
+    if m.norm_topk_prob:
+        w = w / (w.sum(dim=-1, keepdim=True) + 1e-20)
+    return idx, w * m.routed_scale
+
+
+def _relu2(x: torch.Tensor) -> torch.Tensor:
+    return torch.relu(x).square()
+
+
+def moe_apply_sigmoid(params, cfg: ModelConfig, x: torch.Tensor, *,
+                      live: Optional[torch.Tensor] = None,
+                      backend: str = "auto"):
+    """x (B, S, d) -> (y (B, S, d), routed rows, experts touched), the
+    counts 0-d device tensors. Dropless: every routed row is computed.
+    ``live`` (B,) bool: a lane that is not live routes to no expert and its
+    routed output is 0; (B, S) bool: the same per token (a padded prompt's
+    pads)."""
+    B, S, d = x.shape
+    T = B * S
+    xt = x.reshape(T, d)
+    with span("moe.route"):
+        idx, w = route_sigmoid(params, cfg, xt)
+        tok_live = None if live is None else live.reshape(T) \
+            if live.dim() == 2 else live.repeat_interleave(S)
+        routes = ME.route_table(idx, w, cfg.moe.num_experts, tok_live)
+    with span("moe.experts"):
+        out = ops.moe_experts(xt, params["w_up"], params["w_down"], routes,
+                              backend=backend)
+    with span("moe.combine"):
+        y = out.view(T, -1, d).sum(dim=1)          # the k slots, in order
+        if "shared" in params:
+            sp = params["shared"]
+            y = y + L.linear(sp["down"], _relu2(L.linear(sp["up"], xt))
+                             ).float()
+        y = y.to(x.dtype).reshape(B, S, d)
+    return y, routes.offsets[-1], ME.experts_touched(routes)

@@ -80,6 +80,7 @@ class _BatcherBase:
         self._sync_s = 0.0
         self._admitted = 0
         self._blocked = False
+        self._moe = (0, 0)          # the decode's routed rows, experts read
 
     def submit(self, req: Request) -> None:
         req.times.queued = clock()
@@ -113,13 +114,20 @@ class _BatcherBase:
     def _emit(self, logits: torch.Tensor, live: List[int]) -> None:
         """The argmax stays on the device as next tick's input (dead lanes
         pick up garbage, overwritten before any read); one host sync per
-        tick for the bookkeeping."""
+        tick for the bookkeeping, which brings the step's MoE counts
+        (``moe_stats``) back with the tokens."""
         tok_dev = torch.argmax(logits, dim=-1).to(torch.int32)
         self._last_tok = tok_dev
+        counted = "moe_stats" in self.cache
+        both = torch.cat([tok_dev.long(), self.cache["moe_stats"]]) \
+            if counted else tok_dev
         t0 = clock()
         with span("tick.sync"):
             # one sync per tick  # repro-lint: allow[torch-host-sync]
-            toks = tok_dev.cpu().numpy()
+            got = both.cpu().numpy()
+        toks = got[:tok_dev.shape[0]]
+        if counted:
+            self._moe = (int(got[-2]), int(got[-1]))
         now = clock()
         self._sync_s += now - t0
         self._book(live, toks[live], now)
@@ -143,10 +151,11 @@ class _BatcherBase:
         """One scheduler tick (``_tick``), logged in ``trace.TICKS``."""
         start = clock()
         self._sync_s, self._admitted, self._blocked = 0.0, 0, False
+        self._moe = (0, 0)
         lanes = self._tick()
         trace.TICKS.append(trace.Tick(self.pool, start, clock(), self._sync_s,
                                       self._admitted, self._blocked, lanes,
-                                      len(self.queue)))
+                                      len(self.queue), *self._moe))
 
     def _tick(self) -> int:
         """The tick's work; returns the lanes it decoded (0: no decode)."""
@@ -159,12 +168,33 @@ class _BatcherBase:
             ticks += 1
 
 
+# the lengths a captured prefill pads a prompt to (up to the engine's
+# max_len); a longer prompt prefills eagerly at its own length
+PREFILL_BUCKETS = tuple(16 << i for i in range(8))          # 16 .. 2048
+
+
 class ContinuousBatcher(_BatcherBase):
-    """Fixed-slot continuous batching loop on one engine (dense cache)."""
+    """Fixed-slot continuous batching loop on one engine (dense cache).
+
+    A model whose cache holds the lanes' live mask (``block_pattern``)
+    prefills a lane through the engine's captured step, its prompt padded
+    to the next of ``PREFILL_BUCKETS``; every bucket is captured here,
+    before any request. Other models prefill eagerly at the prompt's
+    length."""
 
     def __init__(self, engine: InferenceEngine, slots: int = 4):
         super().__init__(engine, slots)
         self.cache = engine.new_cache(slots)
+        self._live = "live" in self.cache    # the lanes' live mask
+        self._buckets: Tuple[int, ...] = ()
+        if self._live and engine.graphs is not None:
+            self._buckets = tuple(b for b in PREFILL_BUCKETS
+                                  if b <= engine.max_len)
+            lane = engine.lane_cache()
+            for b in self._buckets:
+                engine.prefill({"tokens": torch.zeros(
+                    (1, b), dtype=torch.int32, device=self.device),
+                    "n_valid": b}, lane)
 
     def _retire(self, i: int) -> None:
         self.active[i].done = True
@@ -172,6 +202,8 @@ class ContinuousBatcher(_BatcherBase):
         # the decode kernels mask by kv_len, so stale KV rows are
         # unreachable; SSM states are overwritten by the next splice
         self.cache["pos"][i] = 0                          # in place
+        if self._live:                # the lane routes to no expert now
+            self.cache["live"][i] = False                 # in place
 
     def _fill_slots(self) -> None:
         admitted: List[int] = []
@@ -182,15 +214,21 @@ class ContinuousBatcher(_BatcherBase):
                 req.times.admitted = clock()
                 self._admitted += 1
                 self.active[i] = req
-                # per-request prefill into a fresh single-lane cache, then
+                # per-request prefill into a single-lane cache, then
                 # splice the lane into the batched cache
+                m = len(req.tokens)
+                S = next((b for b in self._buckets if b >= m), 0)
                 with span("lane.cache"):
-                    lane_cache = self.engine.new_cache(1)
+                    lane_cache = self.engine.lane_cache() if S else \
+                        self.engine.new_cache(1)
                 with span("lane.prefill"):
-                    tokens = _to_device(np.asarray(req.tokens, np.int32)[None],
-                                        self.device)
-                    logits, lane_cache = self.engine.prefill(
-                        {"tokens": tokens}, lane_cache)
+                    toks = np.zeros((1, max(S, m)), np.int32)
+                    toks[0, :m] = req.tokens
+                    batch = {"tokens": _to_device(toks, self.device)}
+                    if S:
+                        batch["n_valid"] = m
+                    logits, lane_cache = self.engine.prefill(batch,
+                                                             lane_cache)
                     tok_devs.append(
                         torch.argmax(logits, dim=-1)[0].to(torch.int32))
                 admitted.append(i)
@@ -647,13 +685,17 @@ def migrate_kv_blocks(src_cache: Dict, src_blocks: List[int],
 # Cache keys whose leading axis is the batch; every other dense-cache tensor
 # is layer-leading with the batch at axis 1. Explicit metadata, not a shape
 # heuristic (a heuristic misreads batch-leading tensors when slots == 1).
-_BATCH_LEADING_KEYS = frozenset({"pos"})
+_BATCH_LEADING_KEYS = frozenset({"pos", "live"})
+# Cache keys of the whole step, not of a lane: never spliced.
+_STEP_KEYS = frozenset({"moe_stats"})
 
 
 def _splice_lane(cache: Dict, lane: Dict, i: int) -> None:
     """Copy a single-lane cache (batch dim 1) into batch position i, in
     place."""
     for k, v in cache.items():
+        if k in _STEP_KEYS:
+            continue
         if k in _BATCH_LEADING_KEYS:
             v[i] = lane[k][0]
         else:

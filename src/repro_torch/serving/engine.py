@@ -16,7 +16,10 @@ input shapes, cache, tuning) as a CUDA graph and replayed after; on the
 CPU the runner stages the same inputs around an eager call.
 ``graphs=False`` calls the model's steps eagerly, the counterpart of
 running the reference under ``jax.disable_jit()``. The whole-prompt
-``prefill`` is eager either way: its shape changes with every prompt.
+``prefill`` is eager, its shape changing with every prompt, unless the
+batch pads one lane's prompt and says how much of it is real
+(``n_valid``, a ``block_pattern`` model): then it is a step like the
+others, captured once per padded length and cache.
 """
 from __future__ import annotations
 
@@ -70,6 +73,7 @@ class InferenceEngine:
         self.dtype = dtype
         self.kv_quant = kv_quant      # int8 K/V with per-row scales
         self.graphs = StepGraphs(self.device) if graphs else None
+        self._lane: Optional[Dict[str, torch.Tensor]] = None
 
     # ------------------------------------------------------------------ api
     def new_cache(self, batch_size: int):
@@ -113,12 +117,32 @@ class InferenceEngine:
         return M.decode_step_paged(self.params, self.cfg, tokens, cache,
                                    live=live, backend=self.backend)
 
+    def lane_cache(self):
+        """One single-lane cache for the batchers to prefill into and
+        splice from: a captured prefill writes the same buffers each time."""
+        if self._lane is None:
+            self._lane = self.new_cache(1)
+        return self._lane
+
     def prefill(self, batch: Dict[str, torch.Tensor], cache=None):
+        """``batch["n_valid"]`` (an int or 0-d int32 device tensor) with
+        ``tokens`` (1, S): the prompt is the first n_valid tokens, padded
+        to S (``model.prefill``), and the step runs captured."""
         B = batch["tokens"].shape[0]
         if cache is None:
             cache = self.new_cache(B)
+        if "n_valid" in batch:
+            return self._run("prefill", self._prefill_padded,
+                             {"tokens": batch["tokens"],
+                              "n_valid": batch["n_valid"]}, cache)
         return M.prefill(self.params, self.cfg, batch, cache,
                          backend=self.backend)
+
+    def _prefill_padded(self, cache, tokens, n_valid):
+        n_valid = torch.as_tensor(n_valid, dtype=torch.int32,
+                                  device=self.device)
+        return M.prefill(self.params, self.cfg, {"tokens": tokens}, cache,
+                         backend=self.backend, n_valid=n_valid)
 
     def decode(self, tokens: torch.Tensor, cache):
         return self._run("decode", self._decode, {"tokens": tokens}, cache)

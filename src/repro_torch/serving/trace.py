@@ -39,6 +39,9 @@ SPANS = (
     "tick.prefill", "tick.decode", "tick.sync", "tick.book",
     # StepGraphs.run
     "graph.stage", "graph.replay", "graph.capture",
+    # a sigmoid-routed MoE layer (models/moe.py; eager steps only: a
+    # replayed graph runs no Python)
+    "moe.route", "moe.experts", "moe.combine",
 )
 
 _NULL = contextlib.nullcontext()
@@ -76,6 +79,10 @@ class Tick(NamedTuple):
     blocked: bool           # admission stopped on memory
     decode_lanes: int       # lanes in the tick's decode step (0: none)
     queued: int             # queue length at the tick's end
+    routed_rows: int = 0    # the decode's routed (token, expert) rows and
+    experts_touched: int = 0  # distinct experts read, summed over its MoE
+    # layers (counted on the device, brought back by the tick's own sync;
+    # 0 for a model without a sigmoid-routed MoE)
 
 
 TICKS: Deque[Tick] = deque(maxlen=65_536)

@@ -1622,3 +1622,195 @@ def test_dequantize_is_one_pass_bit_for_bit_on_card(dtype):
     got = ref.dequantize_kv(q8, sc, dtype)
     assert got.dtype == dtype
     assert torch.equal(got, (q8.float() * sc).to(dtype))
+
+
+# --------------------------------------- Nemotron-3-Nano: K5 in groups, K7
+@pytest.mark.gpu
+@pytest.mark.parametrize("S", [1, 300, 2048])
+def test_ssd_scan_groups_on_card(S):
+    """K5 with B and C in 8 groups of N 128 (Nemotron-3-Nano's 64 heads of
+    64; head h reads group h // 8) against the chunked plain version, and
+    each group's 8 heads against the ungrouped kernel on that group's B
+    and C: the same bits."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    H, G, N = 64, 8, 128
+    x, dt, A, _, _ = _ssd_inputs(gen, 1, H, S, N, torch.bfloat16)
+    Bm = _randn(gen, (1, S, G, N), torch.bfloat16)
+    Cm = _randn(gen, (1, S, G, N), torch.bfloat16)
+    y, fs = SS.ssd_scan(x, dt, A, Bm, Cm)
+    torch.cuda.synchronize()
+    want_y, want_fs = SS.ssd_scan_ref(x, dt, A, Bm, Cm)
+    tol = SSD_TOL[torch.bfloat16]
+    torch.testing.assert_close(y.float(), want_y.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(fs, want_fs, atol=tol, rtol=tol)
+    for g in range(G):
+        hs = slice(8 * g, 8 * g + 8)
+        yg, fg = SS.ssd_scan(x[:, hs].contiguous(), dt[:, hs].contiguous(),
+                             A[hs].contiguous(),
+                             Bm[:, :, g].contiguous(),
+                             Cm[:, :, g].contiguous())
+        assert torch.equal(y[:, hs], yg) and torch.equal(fs[:, hs], fg)
+    with pytest.raises(ValueError, match="bfloat16"):
+        SS.ssd_scan(x.float(), dt, A, Bm.float(), Cm.float())
+
+
+def _moe_inputs(gen, T, E=128, k=6, d=2688, f=1856, live=None):
+    from repro_torch.kernels import moe_experts as ME
+    x = _randn(gen, (T, d), torch.bfloat16)
+    w_up = (_randn(gen, (E, f, d), torch.float32) * d ** -0.5).bfloat16()
+    w_down = (_randn(gen, (E, d, f), torch.float32) * f ** -0.5).bfloat16()
+    logits = torch.randn((T, E), generator=gen, device="cuda")
+    idx = torch.topk(logits, k, dim=-1).indices
+    gate = torch.rand((T, k), generator=gen, device="cuda")
+    return x, w_up, w_down, ME.route_table(idx, gate, E, live), idx, gate
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T,n_live", [(64, 8), (64, 64), (7, 7), (300, 300)])
+def test_moe_experts_kernel_matches_plain_on_card(T, n_live):
+    """K7 against its plain version (expert by expert, bf16) and against a
+    float32 per-token sum over the chosen experts, at Nemotron-3-Nano's
+    widths; rows of dead lanes stay zero."""
+    from repro_torch.kernels import moe_experts as ME
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(32)
+    live = torch.zeros(T, dtype=torch.bool, device="cuda")
+    live[torch.randperm(T, generator=gen, device="cuda")[:n_live]] = True
+    x, w_up, w_down, r, idx, gate = _moe_inputs(gen, T, live=live)
+    before = ME.moe_experts.launches
+    got = ME.moe_experts(x, w_up, w_down, r)
+    torch.cuda.synchronize()
+    assert ME.moe_experts.launches == before + 1
+    assert int(r.offsets[-1]) == 6 * n_live
+    plain = ME.moe_experts_ref(x, w_up, w_down, r)
+    scale = plain.abs().max()
+    assert float((got - plain).abs().max() / scale) < 2e-2
+    dead = ~live.repeat_interleave(6)
+    assert bool((got[dead] == 0).all())
+    # float32, token by token
+    xf, uf, df = x.float(), w_up.float(), w_down.float()
+    for t in torch.nonzero(live)[:4, 0].tolist():
+        for j in range(6):
+            e = int(idx[t, j])
+            h = torch.relu(uf[e] @ xf[t]).square()
+            want = gate[t, j] * (df[e] @ h)
+            err = (got[t * 6 + j] - want).abs().max() / want.abs().max()
+            assert float(err) < 2e-2, (t, j, float(err))
+
+
+@pytest.mark.gpu
+def test_moe_experts_captures_into_a_cuda_graph():
+    """K7 reads its routing on the device: one capture serves another
+    routing, dead lanes included, and a replay counts one launch."""
+    from repro_torch.kernels import moe_experts as ME
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(33)
+    T, E = 64, 128
+    live = torch.ones(T, dtype=torch.bool, device="cuda")
+    x, w_up, w_down, r, idx, gate = _moe_inputs(gen, T, live=live)
+    ME.moe_experts(x, w_up, w_down, r)
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        rr = ME.route_table(idx, gate, E, live)
+        y = ME.moe_experts(x, w_up, w_down, rr)
+    live.copy_(torch.arange(T, device="cuda") % 5 == 0)
+    idx.copy_(torch.topk(torch.randn((T, E), generator=gen, device="cuda"),
+                         6, dim=-1).indices)
+    g.replay()
+    torch.cuda.synchronize()
+    want = ME.moe_experts_ref(x, w_up, w_down,
+                              ME.route_table(idx, gate, E, live))
+    assert float((y - want).abs().max() / want.abs().max()) < 2e-2
+    assert int(rr.offsets[-1]) == 6 * int(live.sum())
+
+
+@pytest.mark.gpu
+def test_moe_experts_wrapper_refuses():
+    from repro_torch.kernels import moe_experts as ME
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(34)
+    x, w_up, w_down, r, _, _ = _moe_inputs(gen, 4, E=4, k=2, d=128, f=64)
+    with pytest.raises(ValueError, match="bfloat16"):
+        ME.moe_experts(x.float(), w_up, w_down, r)
+    with pytest.raises(ValueError, match="multiples"):
+        ME.moe_experts(x[:, :96].contiguous(), w_up[:, :, :96].contiguous(),
+                       w_down[:, :96].contiguous(), r)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_at_sixteen_query_heads_a_kv_head_on_card(dtype):
+    """K1 and K2 at Nemotron-3-Nano's GQA: 32 query heads on 2 KV heads
+    (G = 16), D 128, no positional encoding (the model applies none)."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(35)
+    tol = TOL[dtype]
+    q = _randn(gen, (1, 32, 300, 128), dtype)
+    k = _randn(gen, (1, 2, 300, 128), dtype)
+    v = _randn(gen, (1, 2, 300, 128), dtype)
+    torch.testing.assert_close(FA.flash_attention(q, k, v),
+                               FA.flash_attention_ref(q, k, v),
+                               atol=tol, rtol=tol)
+    kc = _randn(gen, (4, 2, 640, 128), dtype)
+    vc = _randn(gen, (4, 2, 640, 128), dtype)
+    q1 = _randn(gen, (4, 32, 1, 128), dtype)
+    kv = torch.tensor([1, 33, 300, 640], dtype=torch.int32, device="cuda")
+    torch.testing.assert_close(DA.decode_attention(q1, kc, vc, kv),
+                               DA.decode_attention_ref(q1, kc, vc, kv),
+                               atol=tol, rtol=tol)
+
+
+# Nemotron-H's block layout at widths the card's kernels take (K1 at D 64,
+# K5 at P 64 / N 128 in two groups, K7 at d 256, f 128)
+NANO_CARD = {"family": "hybrid", "num_layers": 6, "d_model": 256,
+             "num_heads": 4, "num_kv_heads": 2, "head_dim": 64, "d_ff": 128,
+             "vocab_size": 512, "pos_emb": "none", "activation": "relu2",
+             "norm": "rmsnorm", "tie_embeddings": False,
+             "block_pattern": "MEM*EM",
+             "ssm": {"state_dim": 128, "head_dim": 64, "expand": 2,
+                     "chunk_size": 128, "conv_width": 4, "n_groups": 2,
+                     "num_heads": 8},
+             "moe": {"num_experts": 16, "num_experts_per_tok": 6,
+                     "router": "sigmoid", "score_bias": True,
+                     "norm_topk_prob": True, "routed_scale": 2.5,
+                     "shared_expert_dim": 256}}
+
+
+@pytest.mark.gpu
+def test_padded_prefill_captures_and_replays_on_card():
+    """A block_pattern model's padded prefill captured as a CUDA graph: the
+    capture and a replay on another prompt each give the logits and states
+    of the eager prefill at the prompt's own length, and a replay counts
+    the kernels its capture ran (K5 three times, K7 twice)."""
+    import pathlib
+    from repro_torch.configs.base import ModelConfig
+    from repro_torch.kernels import moe_experts as ME
+    from repro_torch.serving.engine import InferenceEngine
+    _need_card()
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
+    from serve_bench.reference import nemotron_h as REF
+    gen = torch.Generator(device="cuda").manual_seed(36)
+    w = REF.make_weights(NANO_CARD, gen, torch.bfloat16, "cuda")
+    eng = InferenceEngine(ModelConfig(name="nano-card", **NANO_CARD), w,
+                          max_len=256, dtype=torch.bfloat16, device="cuda")
+    lane = eng.new_cache(1)
+    for i, m in enumerate((40, 5, 64)):
+        toks = torch.randint(0, 512, (1, m), generator=gen, device="cuda",
+                             dtype=torch.int32)
+        want, exact = eng.prefill({"tokens": toks}, eng.new_cache(1))
+        padded = torch.zeros((1, 64), dtype=torch.int32, device="cuda")
+        padded[:, :m] = toks
+        before = (SS.ssd_scan.launches, ME.moe_experts.launches)
+        got, _ = eng.prefill({"tokens": padded, "n_valid": m}, lane)
+        torch.cuda.synchronize()
+        assert eng.graphs.captures == 1 and eng.graphs.replays == i
+        assert (SS.ssd_scan.launches - before[0],
+                ME.moe_experts.launches - before[1]) == (3, 2)
+        scale = float(want.abs().max())
+        assert float((got - want).abs().max()) < 2e-2 * scale, m
+        for k, tol in (("ssm", 5e-2), ("conv", 2e-2)):
+            err = (lane[k].float() - exact[k].float()).abs().max()
+            assert float(err) <= tol * float(exact[k].abs().max()), (m, k)
+        assert int(lane["pos"][0]) == m

@@ -273,7 +273,8 @@ def test_kernel_sources_and_build_are_lazy():
     srcs = {p.name for p in _build._sources()}
     assert srcs == {"flash_attention.cu", "decode_attention.cu",
                     "ssm_scan.cu", "flash_attention_bwd.cu",
-                    "ssm_scan_bwd.cu", "chunk_attention.cu"}
+                    "ssm_scan_bwd.cu", "chunk_attention.cu",
+                    "moe_experts.cu"}
     text = (_build.CSRC_DIR / "flash_attention.cu").read_text()
     assert "repro/kernels/flash_attention.py" in text
     # K1-bwd: the gradient of the same TPU kernel, which has no backward
@@ -302,6 +303,14 @@ def test_kernel_sources_and_build_are_lazy():
     # dtype, D, q k_pool v_pool table kv_len q_offset o, 6 ints, 2 floats,
     # the stream
     assert len(_build._SIGNATURES["repro_paged_chunk_attention"]) == 18
+    # K7, the grouped expert kernel, replaces no Pallas kernel: the JAX
+    # package's MoE runs one product over an (experts, capacity) buffer
+    text = (_build.CSRC_DIR / "moe_experts.cu").read_text()
+    assert "Replaces no Pallas kernel" in text
+    assert 'extern "C" int repro_moe_experts(' in text
+    # x w_up w_down token slot gate offsets tile_start h y, 5 ints, the
+    # stream
+    assert len(_build._SIGNATURES["repro_moe_experts"]) == 16
     assert "arch=compute_90a,code=sm_90a" in " ".join(_build.NVCC_FLAGS)
 
 
@@ -317,5 +326,5 @@ def test_ssm_scan_source_is_built_lazily():
     assert "repro/kernels/ssm_scan.py" in text and "_ssd_kernel" in text
     assert 'extern "C" int repro_ssd_scan(' in text
     # inputs, outputs, the workspace (states, totals), shapes, chunk, the
-    # passes mask and the stream
-    assert len(_build._SIGNATURES["repro_ssd_scan"]) == 18
+    # passes mask, the B/C groups and the stream
+    assert len(_build._SIGNATURES["repro_ssd_scan"]) == 19

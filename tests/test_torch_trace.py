@@ -178,13 +178,38 @@ PARENTS = {"lane.cache": ("tick.fill",), "lane.prefill": ("tick.fill",),
            "lane.splice": ("tick.fill",),
            "tick.sync": ("tick.fill", "tick.prefill", None),
            "tick.book": ("tick.fill", "tick.prefill", None),
-           "graph.stage": ("tick.decode", "tick.prefill"),
-           "graph.replay": ("tick.decode", "tick.prefill"),
-           "graph.capture": ("tick.decode", "tick.prefill"),
+           # a block_pattern model's dense batcher captures its padded
+           # prefills when it is made (no tick) and replays them in
+           # lane.prefill
+           "graph.stage": ("tick.decode", "tick.prefill", "lane.prefill",
+                           None),
+           "graph.replay": ("tick.decode", "tick.prefill", "lane.prefill"),
+           "graph.capture": ("tick.decode", "tick.prefill", None),
            "tick.admit": (None,), "tick.fill": (None,),
            "tick.prefill": (None,), "tick.decode": (None,),
            "router.snapshot": (None,), "router.dispatch": (None,),
-           "router.book": (None,), "router.enqueue": (None,)}
+           "router.book": (None,), "router.enqueue": (None,),
+           # the sigmoid-routed MoE layer: in the eager prefill, and in the
+           # decode step the runner calls eagerly on the CPU
+           "moe.route": ("lane.prefill", "graph.capture", "graph.replay"),
+           "moe.experts": ("lane.prefill", "graph.capture", "graph.replay"),
+           "moe.combine": ("lane.prefill", "graph.capture", "graph.replay")}
+
+
+def _serve_moe():
+    """Reduced nemotron-3-nano-30b-a3b (Mamba2, a sigmoid-routed MoE) on
+    a dense batcher: the MoE spans' path. Returns the tokens served."""
+    from repro_torch.serving.batching import ContinuousBatcher, Request
+    cfg = get_config("nemotron-3-nano-30b-a3b").reduced()
+    eng = InferenceEngine(cfg, M.init_params(cfg, torch.Generator()
+                                             .manual_seed(4)),
+                          max_len=32, device="cpu")
+    cb = ContinuousBatcher(eng, slots=2)
+    reqs = [Request(i, p[:12], 3) for i, p in enumerate(_prompts(3))]
+    for r in reqs:
+        cb.submit(r)
+    cb.run()
+    return [r.out_tokens for r in reqs]
 
 
 def _parent(spans, i):
@@ -197,8 +222,10 @@ def _parent(spans, i):
 
 def test_spans_under_the_profiler_nest_and_change_nothing(tmp_path):
     plain = [_serve(paged, "capacity_aware") for paged in (True, False)]
+    plain.append(_serve_moe())
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         traced = [_serve(paged, "capacity_aware") for paged in (True, False)]
+        traced.append(_serve_moe())
     assert traced == plain
     spans = [s for s in _annotations(prof, tmp_path)
              if s[0] in trace.SPANS]
