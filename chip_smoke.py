@@ -9,7 +9,7 @@ Phases, each printing its own lines; any failure exits non-zero:
   1. device  — card name, count, and nvidia-smi's name and power limit;
   2. build   — the Hopper kernels of src/repro_torch/csrc, built with nvcc
                (build seconds and -Xptxas -v output, and a line per K1 v3
-               and v4, K2 v3 / K3 v2 / K4 v2 (split and combine; the int8
+               and v4, K2 v4 / K3 v3 / K4 v3 (split and combine; the int8
                split instantiations labelled K4) and K5 (bf16 v2's three
                passes, float32 v3's chunk-state and outputs passes) kernel
                with its registers, shared memory and spills; a spill in K1
@@ -29,10 +29,10 @@ Phases, each printing its own lines; any failure exits non-zero:
                64/128, Hkv 8/32 and every tile each takes, and each row's
                lse from both (the forward's output to K1-bwd) against
                flash_attention_lse_ref, +inf exactly on rows with no
-               valid key; K2 (v3,
+               valid key; K2 (v4,
                split-KV) at kv_len on both sides of a split edge, both
                dtypes, D 64/128, captured into a CUDA graph, one count per
-               call; the tiles each K1 kernel refuses; K3 (v2, split-KV
+               call; the tiles each K1 kernel refuses; K3 (v3, split-KV
                through the block tables) at pool blocks of 16 and 128, and
                at kv_len 0 and on both sides of a split edge for block_k
                32/64/128, pool blocks of 16 and 32, G = 1 and 4, a window
@@ -43,7 +43,7 @@ Phases, each printing its own lines; any failure exits non-zero:
                (chunk 128, S = 512 and a ragged 300) and at their reduced
                shapes (P = N = 32, chunk 32), f32 2e-5, bf16 5e-2, y and the
                final state, and captured into a CUDA graph; then
-               K4 (v2, K3's split-KV over int8 rows), the int8 paged
+               K4 (v3, K3's split-KV over int8 rows), the int8 paged
                decode, against its plain version (the scale-folded read) at
                mistral-7b's serving shape and a reduced D = 64 one (f32
                2e-5, bf16 2e-2) and against the gather oracle (f32 3e-5),
@@ -67,6 +67,20 @@ Phases, each printing its own lines; any failure exits non-zero:
                same function (SDPA, K/V expanded when grouped), and the
                card's bound (K4 also beside the gather composition; K1 by
                tile, K2, K3 and K4 by block_k, K5 by pass);
+  3s. K3 at the mistral7b cells' decode shapes — 128 lane slots of
+               384-entry tables, window 4096; chat 21 live lanes of 40-300
+               keys, longprompt 9 of 1,500-4,200, the rest dead at kv_len 1
+               and one at 0 — against its plain version, timed, beside its
+               bytes' bound and the blocks each of its two kernels launches
+               (a torch.profiler trace's grids). ``python3 chip_smoke.py
+               --phase k3 [--parent DIR]`` runs phases 1, 2 and 3s alone,
+               then K2, K3 and K4 at PERF.md's kernel-table shapes (K2 also
+               at qwen2-vl-7b's and whisper-base's, K3 also without the
+               window, as phi3.5-moe's paged batchers run it); with
+               ``--parent`` it also times DIR's kernels (another checkout,
+               built in its own build/) on the same calls in turns (parent,
+               this, this, parent), with their blocks and the largest
+               difference between the two outputs;
   3t. K1-bwd — K1 with its lse (v4 in f32, v3 in bf16), then the
                gradient of K1 on that lse, against their plain versions and
                torch.autograd of K1's: the output and lse within f32 2e-5 /
@@ -435,7 +449,7 @@ def _int8_split(kern):
 
 def _ptxas_report(log):
     """(kernel, registers, static smem bytes, "stores/loads" spill bytes) of
-    every K1 v3 and v4, K2 v3 / K3 v2 / K4 v2, K5 v2 and v3, K1-bwd,
+    every K1 v3 and v4, K2 v4 / K3 v3 / K4 v3, K5 v2 and v3, K1-bwd,
     K5-bwd and K6 instantiation in nvcc's -Xptxas -v output."""
     import re
     out, name, spill = [], None, "?"
@@ -1441,6 +1455,182 @@ def _split_tiles(torch, fn, *args, window):
         *args, window=window, block_k=bk)) for bk in (32, 64, 128)}
 
 
+# K3 at the mistral7b cells' decode shape: 128 lane slots, 384-entry tables
+# of 16-row blocks, 32 query heads on 8 KV heads of 128, bf16, window 4096;
+# (live lanes, their least and most kv_len), the other slots dead at kv_len
+# 1 and one at 0, the live ones scattered among them
+K3_SERVING = {"chat": (21, 40, 300), "longprompt": (9, 1500, 4200)}
+
+
+def serving_lanes(torch, name, seed=3):
+    """kv_len of the 128 lane slots of ``K3_SERVING[name]``."""
+    g = torch.Generator().manual_seed(seed)
+    n, lo, hi = K3_SERVING[name]
+    kv = [1] * 128
+    kv[int(torch.randint(0, 128, (1,), generator=g))] = 0
+    for slot in torch.randperm(128, generator=g)[:n].tolist():
+        kv[slot] = int(torch.randint(lo, hi + 1, (1,), generator=g))
+    return kv
+
+
+def parent_library(tree):
+    """The kernel library of another checkout ``tree`` (built there by a
+    process of its own, into its own build/), loaded with this checkout's
+    C signatures, which its entry points must have."""
+    from repro_torch.kernels import _build
+    path = subprocess.run(
+        [sys.executable, "-c", "import sys; sys.path.insert(0, 'src'); "
+         "from repro_torch.kernels import _build; "
+         "print(_build.library()._name)"],
+        cwd=tree, check=True, capture_output=True, text=True).stdout.split()[-1]
+    return _build.bind(path)
+
+
+def _blocks_launched(torch, fn):
+    """{kernel name: blocks} of one call of ``fn``, from the grid of each
+    kernel in torch.profiler's trace; None if the trace has no grids."""
+    import os
+    import tempfile
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    fd, path = tempfile.mkstemp(suffix=".json", dir=ROOT / "build")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    finally:
+        os.unlink(path)
+    blocks = {}
+    for e in events:
+        grid = e.get("args", {}).get("grid")
+        if e.get("cat") == "kernel" and grid:
+            name = e["name"].split("<")[0].split("::")[-1]
+            blocks[name] = blocks.get(name, 0) + grid[0] * grid[1] * grid[2]
+    return blocks or None
+
+
+def _against_parent(torch, call, got, parent):
+    """{ms} of ``call(lib)`` (``lib`` None: this checkout's kernels) by graph
+    replay; with ``parent`` (another checkout's kernel library) also its ms
+    on the same call, in turns (parent, this, this, parent), and the largest
+    difference between the outputs."""
+    if parent is None:
+        return dict(ms=time_ms(torch, call))
+    old = call(parent)
+    turns = [time_ms(torch, lambda: call(parent)), time_ms(torch, call),
+             time_ms(torch, call), time_ms(torch, lambda: call(parent))]
+    return dict(ms=(turns[1] + turns[2]) / 2,
+                parent_ms=(turns[0] + turns[3]) / 2, turns_ms=turns,
+                max_abs_diff_to_parent=(got.float() - old.float()).abs()
+                .max().item(), bit_identical=torch.equal(got, old))
+
+
+def decode_table_rows(torch, gen, parent=None):
+    """K2, K3 and K4 at the shapes of PERF.md's kernel table (K2: one lane
+    528 keys into a 544-row cache, at mistral-7b's heads and at zamba2's
+    shared block, and one lane 16 steps into decode at qwen2-vl-7b's G = 7
+    and at whisper-base's G = 1, D 64; K3, K4: 4 lanes of a 1024-block pool,
+    blocks of 16, with mistral-7b's window and without, as phi3.5-moe's
+    paged batchers serve them), bf16, with the parent's ms on the same calls
+    where ``parent`` is given."""
+    from repro_torch.kernels import decode_attention as DA
+    dt, n = torch.bfloat16, M_CAP + 16
+    mb = -(-MAX_LEN // 16)
+    k2 = _decode_inputs(torch, gen, dt, 1, MAX_LEN, D, [n])
+    kz = _decode_inputs(torch, gen, dt, 1, MAX_LEN, ZD, [n], ZHQ, ZHQ)
+    kq = _decode_inputs(torch, gen, dt, 1, QWEN_MAX_LEN, D,
+                        [QVIS + M_CAP + 16], QHQ, QHKV)
+    kw = _decode_inputs(torch, gen, dt, 1, W_MAX_LEN, WD, [W_PROMPT + 16],
+                        WHQ, WHQ)
+    k3 = _paged_inputs(torch, gen, dt, 16, D, SERVE_KV_LEN, 1024, mb)
+    k4 = _int8_inputs(torch, gen, dt, 16, D, SERVE_KV_LEN, 1024, mb)
+    calls = {
+        "decode_attention": lambda lib=None: DA.decode_attention(
+            *k2, window=4096, lib=lib),
+        f"decode_attention@{ZAMBA}": lambda lib=None: DA.decode_attention(
+            *kz, window=ZWINDOW, lib=lib),
+        f"decode_attention@{QWEN}": lambda lib=None: DA.decode_attention(
+            *kq, lib=lib),
+        f"decode_attention@{WHISPER}": lambda lib=None: DA.decode_attention(
+            *kw, lib=lib),
+        "paged_decode_attention": lambda lib=None: DA.paged_decode_attention(
+            *k3, window=4096, lib=lib),
+        f"paged_decode_attention@{PHI}":
+            lambda lib=None: DA.paged_decode_attention(*k3, lib=lib),
+        "paged_decode_attention_int8":
+            lambda lib=None: DA.paged_decode_attention_int8(
+                *k4, window=4096, lib=lib)}
+    rows = {}
+    for name, call in calls.items():
+        rows[name] = _against_parent(torch, call, call(), parent)
+        say(f"  {name} at the kernel table's shape: {rows[name]}")
+    return rows
+
+
+def k3_serving(torch, gen, parent=None):
+    """K3 at the mistral7b cells' two decode shapes (``K3_SERVING``): ms by
+    graph replay, the bytes' bound, the blocks launched and, where
+    ``parent`` (another checkout's kernel library) is given, its ms on the
+    same call, in turns (parent, this, this, parent), its blocks, and the
+    largest difference between the two outputs. One row a shape."""
+    from repro_torch.kernels import decode_attention as DA
+    rows = {}
+    for name in K3_SERVING:
+        kv_len = serving_lanes(torch, name)
+        nb = 1 + sum(-(-n // CHUNK_BS) for n in kv_len)
+        q, kp, vp, tables, kvl = _paged_inputs(torch, gen, torch.bfloat16,
+                                               CHUNK_BS, D, kv_len, nb,
+                                               CHUNK_BLOCKS)
+
+        def call(lib=None):
+            return DA.paged_decode_attention(q, kp, vp, tables, kvl,
+                                             window=WINDOW, lib=lib)
+        ks = [min(n, WINDOW) for n in kv_len]
+        b_ms, b_by = _bound(4 * HQ * D * sum(ks),
+                            (2 * len(ks) * HQ * D + 2 * HKV * D * sum(ks)) * 2
+                            + 4 * len(ks)
+                            + 4 * sum(-(-k // CHUNK_BS) for k in ks))
+        got = call()
+        want = DA.paged_decode_attention_ref(q, kp, vp, tables, kvl,
+                                             window=WINDOW)
+        err, ok = _err_on_valid(torch, got, want, (kvl > 0)[:, None, None]
+                                .expand_as(got[..., 0]), TOL["bfloat16"])
+        if not ok:
+            fail(f"K3 at {name}'s serving shape disagrees with its plain "
+                 f"version: {err:.3e}")
+        by_kernel = r"(decode_split_kernel|decode_combine_kernel)"
+        row = dict(parent_ms=None, bound_ms=b_ms, bound_by=b_by,
+                   blocks=_blocks_launched(torch, call), parent_blocks=None,
+                   kernel_ms=_kernel_split(torch, call, by_kernel),
+                   parent_kernel_ms=None, max_abs_diff_to_parent=None,
+                   err=err, live_lanes=sum(n > 1 for n in kv_len),
+                   keys=sum(kv_len))
+        row.update(_against_parent(torch, call, got, parent))
+        if parent is not None:
+            row["parent_blocks"] = _blocks_launched(
+                torch, lambda: call(parent))
+            row["parent_kernel_ms"] = _kernel_split(
+                torch, lambda: call(parent), by_kernel)
+        say(f"  K3 serve {name:10s} B=128 live={row['live_lanes']} "
+            f"keys={row['keys']} table={CHUNK_BLOCKS}x{CHUNK_BS}: "
+            f"ms={row['ms']:.4f} parent_ms={row['parent_ms']} "
+            f"bound_ms={b_ms:.5f} ({b_by}) blocks={row['blocks']} "
+            f"parent_blocks={row['parent_blocks']} "
+            f"kernel_ms={row['kernel_ms']} "
+            f"parent_kernel_ms={row['parent_kernel_ms']} "
+            f"max_abs_diff_to_parent={row['max_abs_diff_to_parent']} "
+            f"err={err:.3e}")
+        rows[f"paged_decode_attention@{name}"] = row
+        del q, kp, vp, tables, kvl, got, want
+    torch.cuda.empty_cache()
+    return rows
+
+
 def phase_kernels(torch):
     say("== phase 3: kernels vs plain versions")
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -1450,6 +1640,9 @@ def phase_kernels(torch):
             **check_ssd(torch, gen),
             "paged_chunk_attention": check_chunk(torch, gen)}
     times = time_kernels(torch, gen)
+    k3 = k3_serving(torch, gen)
+    say(json.dumps({"k3_serving": k3}))
+    times.update(k3)
     return errs, times
 
 
@@ -1612,12 +1805,12 @@ def _dense_and_paged_parity(torch, label, eng, prompts):
                         torch.cat(last["auto"]), torch.cat(last["ref"]))
     worst = max(worst, err)
     seen.append(torch.cat(last["auto"]))
-    live = torch.ones(2, dtype=torch.bool, device="cuda")
+    lanes = torch.arange(2, device="cuda")
     logits = {}
     for step in range(8):
         for b, e in eng.items():
             logits[b], caches[b] = e.decode_paged(
-                tok[:, None].to(torch.int32), caches[b], live)
+                tok[:, None].to(torch.int32), caches[b], lanes)
         err, tok = _compare(torch, f"{label}paged decode {step}",
                             logits["auto"], logits["ref"])
         worst = max(worst, err)
@@ -4079,6 +4272,17 @@ def main() -> None:
         launches, errs, times = phase_nemotron(torch, card)
         say(json.dumps({"kernels": _nemotron_rows(launches, errs, times)}))
         say(json.dumps({"ok": True, "phase": 15}))
+        return
+    if sys.argv[1:3] == ["--phase", "k3"]:    # K3 at the serving shapes
+        say("== phase 3s: K3 at the mistral7b cells' decode shapes")
+        parent = None
+        if sys.argv[3:4] == ["--parent"]:
+            parent = parent_library(Path(sys.argv[4]).resolve())
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        rows = k3_serving(torch, gen, parent)
+        rows.update(decode_table_rows(torch, gen, parent))
+        say(json.dumps({"k3_serving": rows}))
+        say(json.dumps({"ok": True, "phase": "k3"}))
         return
     errs, times = phase_kernels(torch)
     bwd_worst, train_times = phase_kernels_train(torch)

@@ -14,7 +14,6 @@ namespace repro_torch {
 
 constexpr float kNegInf = -1e30f;     // the reference's NEG_INF
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kThreads = 256;         // eight warps per block
 constexpr int kInFlight = 4;          // 16-byte loads in flight per thread
 
 template <typename T> __device__ __forceinline__ T from_f32(float x);

@@ -153,6 +153,14 @@ def library() -> ctypes.CDLL:
         log = _compile(lib_path)
         built = True
     seconds = time.perf_counter() - t0 if built else 0.0
+    lib = bind(lib_path)
+    _lib, _info = lib, BuildInfo(str(lib_path), built, seconds, log)
+    return lib
+
+
+def bind(lib_path) -> ctypes.CDLL:
+    """The shared library at ``lib_path`` loaded, each entry point given
+    its C signature."""
     lib = ctypes.CDLL(str(lib_path))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
@@ -160,7 +168,6 @@ def library() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.repro_error_string.argtypes = [ctypes.c_int]
     lib.repro_error_string.restype = ctypes.c_char_p
-    _lib, _info = lib, BuildInfo(str(lib_path), built, seconds, log)
     return lib
 
 

@@ -5,12 +5,16 @@ K2 replaces the Pallas TPU kernel ``repro/kernels/decode_attention.py::
 decode_attention`` (body ``_decode_kernel``); K3 replaces
 ``paged_decode_attention`` (body ``_paged_decode_kernel``); K4 replaces
 ``paged_decode_attention_int8`` (body ``_paged_decode_int8_kernel``). All
-three are ``csrc/decode_attention.cu``: one kernel splits the KV axis across
-blocks and a second launch merges the splits' float32 partials (two device
-kernels per call, one count). The three differ only in where a key row
-lives (a dense slab, or a pool block found through the block table) and in
-what it holds (float or bf16 values, or int8 values with a float32 scale,
-converted in registers). Its header note says what bounds them.
+three are ``csrc/decode_attention.cu``: the KV axis is cut into splits of
+``block_k`` keys, one kernel walks a work list of the live (lane, KV head,
+split) items that it builds on the device from ``kv_len``, on a grid fixed
+from the card's SM count and the kernel's occupancy, and a second launch
+merges each lane's live splits' float32 partials (two device kernels per
+call, one count). Any batch B: the kernel lists the lanes 128 at a time.
+The three differ only in where a key row lives (a dense slab, or a pool
+block found through the block table) and in what it holds (float or bf16
+values, or int8 values with a float32 scale, converted in registers). Its
+header note says what bounds them.
 """
 from __future__ import annotations
 
@@ -26,9 +30,10 @@ SPLIT_KS = (32, 64, 128)   # K3's and K4's keys per split; any pool block size
 
 
 def num_splits(smax: int, block_k: int) -> int:
-    """K2's, K3's and K4's KV splits: fixed from the cache's extent (Smax, or
-    block_size * max_blocks), never from kv_len, so a call needs no host
-    sync and captures into a CUDA graph."""
+    """K2's, K3's and K4's KV splits, the workspace's third axis: fixed from
+    the cache's extent (Smax, or block_size * max_blocks), never from
+    kv_len, so a call needs no host sync and captures into a CUDA graph.
+    Only a lane's live splits are computed and written."""
     return max(1, -(-smax // block_k))
 
 
@@ -80,12 +85,14 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, kv_len: torch.Tensor, *,
                      window: Optional[int] = None,
                      softcap: Optional[float] = None,
-                     block_k: int = 64) -> torch.Tensor:
+                     block_k: int = 64, lib=None) -> torch.Tensor:
     """K2. q: (B, Hq, 1, D); caches (B, Hkv, Smax, D); kv_len (B,) int32,
     the new token's K/V already written at kv_len-1. Returns (B, Hq, 1, D).
     CUDA tensors launch the kernel (or raise); CPU tensors take the plain
     version. ``block_k`` keys per split; the float32 workspace of the
-    splits' partials, (B, Hq, splits, D + 2), is allocated here."""
+    splits' partials, (B, Hq, splits, D + 2), is allocated here. ``lib``: a
+    kernel library to launch from (``_build.bind``; default the port's own),
+    such as another checkout's, timed on the same call."""
     if q.device.type == "cpu":
         return decode_attention_ref(q, k_cache, v_cache, kv_len,
                                     window=window, softcap=softcap)
@@ -101,7 +108,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
         return out
     ws = torch.empty((B, Hq, num_splits(Smax, block_k), D + 2),
                      dtype=torch.float32, device=q.device)
-    code = _build.library().repro_decode_attention(
+    code = (lib or _build.library()).repro_decode_attention(
         DTYPE_CODES[q.dtype], D, q.data_ptr(), k_cache.data_ptr(),
         v_cache.data_ptr(), kv_len.data_ptr(), ws.data_ptr(), out.data_ptr(),
         B, Hq, Hkv, Smax, window or 0, float(softcap or 0.0),
@@ -117,14 +124,15 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
                            kv_len: torch.Tensor, *,
                            window: Optional[int] = None,
                            softcap: Optional[float] = None,
-                           block_k: int = 64) -> torch.Tensor:
+                           block_k: int = 64, lib=None) -> torch.Tensor:
     """K3. q: (B, Hq, 1, D); pools (num_blocks, Hkv, block_size, D);
     block_tables (B, max_blocks) int32 whose every entry is a valid pool
     index (dead entries point at the null block 0); kv_len (B,) int32.
     CUDA tensors launch the kernel (or raise); CPU tensors take the plain
     version. ``block_k`` keys per split, one of ``SPLIT_KS``; the float32
     workspace of the splits' partials, (B, Hq, splits, D + 2) with splits =
-    ceil(block_size * max_blocks / block_k), is allocated here."""
+    ceil(block_size * max_blocks / block_k), is allocated here. ``lib`` as
+    K2's."""
     if q.device.type == "cpu":
         return paged_decode_attention_ref(q, k_pool, v_pool, block_tables,
                                           kv_len, window=window,
@@ -144,7 +152,7 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
         return out
     max_blocks = block_tables.shape[1]
     ws = _paged_workspace(q, bs * max_blocks, block_k)
-    code = _build.library().repro_paged_decode_attention(
+    code = (lib or _build.library()).repro_paged_decode_attention(
         DTYPE_CODES[q.dtype], D, q.data_ptr(), k_pool.data_ptr(),
         v_pool.data_ptr(), block_tables.data_ptr(), kv_len.data_ptr(),
         ws.data_ptr(), out.data_ptr(), B, Hq, Hkv, bs, max_blocks,
@@ -217,14 +225,15 @@ def paged_decode_attention_int8(q: torch.Tensor, k_pool: torch.Tensor,
                                 kv_len: torch.Tensor, *,
                                 window: Optional[int] = None,
                                 softcap: Optional[float] = None,
-                                block_k: int = 64) -> torch.Tensor:
+                                block_k: int = 64,
+                                lib=None) -> torch.Tensor:
     """K4. q: (B, Hq, 1, D) float32 or bfloat16; k/v pools (num_blocks,
     Hkv, block_size, D) int8; k/v scale pools (num_blocks, Hkv, block_size,
     1) float32; block_tables (B, max_blocks) int32, every entry a valid pool
     index; kv_len (B,) int32. Returns (B, Hq, 1, D) in q's dtype. CUDA
     tensors launch the kernel (or raise); CPU tensors take the plain
     version. ``block_k`` keys per split, one of ``SPLIT_KS``; the float32
-    workspace is K3's, allocated here."""
+    workspace is K3's, allocated here. ``lib`` as K2's."""
     if q.device.type == "cpu":
         return paged_decode_attention_int8_ref(
             q, k_pool, v_pool, k_scale_pool, v_scale_pool, block_tables,
@@ -241,7 +250,7 @@ def paged_decode_attention_int8(q: torch.Tensor, k_pool: torch.Tensor,
         return out
     max_blocks = block_tables.shape[1]
     ws = _paged_workspace(q, bs * max_blocks, block_k)
-    code = _build.library().repro_paged_decode_attention_int8(
+    code = (lib or _build.library()).repro_paged_decode_attention_int8(
         DTYPE_CODES[q.dtype], D, q.data_ptr(), k_pool.data_ptr(),
         v_pool.data_ptr(), k_scale_pool.data_ptr(), v_scale_pool.data_ptr(),
         block_tables.data_ptr(), kv_len.data_ptr(), ws.data_ptr(),

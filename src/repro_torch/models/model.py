@@ -11,7 +11,7 @@ Public API (``cfg`` is a frozen ``ModelConfig``):
     encode(params, cfg, frames)                              -> encoder output
     init_paged_cache(cfg, lanes, num_blocks, block_size, ..., kv_quant=)
     prefill_paged_chunk(params, cfg, tokens, cache, lane=, n_valid=)
-    decode_step_paged(params, cfg, tokens, cache, live=)
+    decode_step_paged(params, cfg, tokens, cache, live= or lanes=)
 
 ``batch`` holds ``tokens`` (B, S) for every family, and ``vision`` (B,
 n_vis, d_model) for the VLM family (patch embeddings put before the text)
@@ -788,28 +788,42 @@ def prefill_paged_chunk(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
 
 def decode_step_paged(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                       cache, *, live: Optional[torch.Tensor] = None,
+                      lanes: Optional[torch.Tensor] = None,
                       backend: str = "auto"):
-    """One batched decode step over every lane of a paged cache.
+    """One batched decode step over the lanes of a paged cache.
 
     tokens (lanes, 1) int; ``live`` (lanes,) bool — lanes that are empty or
     still prefilling run the math for shape stability, but their K/V writes
     go to the null block and their ``pos`` does not advance (a freed lane's
     blocks may already belong to another request). Returns
     (logits (lanes, V), cache).
+
+    ``lanes`` (n,) int64 instead of ``live``: the step runs n rows, row j
+    lane ``lanes[j]``, so its products cost n rows, not every lane's; an
+    entry of -1 is padding (kv_len 1 over null blocks, nothing written).
+    Every other lane is left as it is. Returns (logits (n, V), cache).
     """
     _check_family(cfg)
-    B = tokens.shape[0]
     pos = cache["pos"]
+    tables = cache["block_tables"]
+    if lanes is not None:
+        if live is not None:
+            raise ValueError("give live or lanes, not both")
+        live = lanes >= 0
+        slots = lanes.clamp(min=0)
+        tokens = tokens[slots]
+        pos = torch.where(live, pos[slots], 0)
+        tables = torch.where(live[:, None], tables[slots], NULL_BLOCK)
+    B = tokens.shape[0]
     if live is None:
         live = torch.ones((B,), dtype=torch.bool, device=tokens.device)
     kv_len = pos + 1
     h = params["embed"]["emb"][tokens]
     positions = pos[:, None]
-    tables = cache["block_tables"]
     bs = cache["kp"].shape[3]
-    lanes = torch.arange(B, device=tokens.device)
+    rows_b = torch.arange(B, device=tokens.device)
     slot = (pos // bs).clamp(max=tables.shape[1] - 1).long()
-    block_ids = torch.where(live, tables[lanes, slot], NULL_BLOCK).long()
+    block_ids = torch.where(live, tables[rows_b, slot], NULL_BLOCK).long()
     rows = (pos % bs).long()
     for i, lp in enumerate(params["layers"]):
         a = L.norm_apply(cfg.norm, lp["attn_norm"], h)
@@ -819,5 +833,8 @@ def decode_step_paged(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             rows=rows, kv_len=kv_len, window=cfg.sliding_window,
             backend=backend, **_scales(cache, i, paged=True))
         h = _mlp_block(lp, cfg, h)
-    pos.copy_(torch.where(live, kv_len, pos))                # in place
+    if lanes is None:
+        pos.copy_(torch.where(live, kv_len, pos))            # in place
+    else:   # padding adds 0 (to lane 0): a sum, so no write is lost
+        cache["pos"].index_add_(0, slots, live.to(pos.dtype))  # in place
     return _logits(params, cfg, h[:, -1]), cache

@@ -8,7 +8,9 @@
   * ``PagedContinuousBatcher`` — a shared block pool plus per-lane block
     tables, with memory-aware admission, chunked prefill interleaved with
     decode ticks, and refcounted prefix-block sharing (dense family only:
-    ``model.init_paged_cache`` refuses SSM and hybrid configs).
+    ``model.init_paged_cache`` refuses SSM and hybrid configs). A decode
+    tick runs the decoding lanes alone, padded to the least row count of
+    ``DECODE_ROWS`` that holds them, each count a captured step of its own.
 
 Both keep one batched host sync per tick: the tokens a tick emits come to
 the host together, while the next tick's input stays on the device.
@@ -111,13 +113,21 @@ class _BatcherBase:
         self._sync_s += now - t0
         self._book(lanes, toks, now)          # eos on a first token retires
 
-    def _emit(self, logits: torch.Tensor, live: List[int]) -> None:
+    def _emit(self, logits: torch.Tensor, live: List[int],
+              lanes: Optional[torch.Tensor] = None) -> None:
         """The argmax stays on the device as next tick's input (dead lanes
         pick up garbage, overwritten before any read); one host sync per
         tick for the bookkeeping, which brings the step's MoE counts
-        (``moe_stats``) back with the tokens."""
+        (``moe_stats``) back with the tokens. Row i of ``logits`` is lane i,
+        or with ``lanes`` (the step's rows, ``live`` first) lane lanes[i]."""
         tok_dev = torch.argmax(logits, dim=-1).to(torch.int32)
-        self._last_tok = tok_dev
+        rows = live
+        if lanes is None:
+            self._last_tok = tok_dev
+        else:
+            rows = list(range(len(live)))
+            self._last_tok.index_copy_(0, lanes[:len(live)],      # in place
+                                       tok_dev[:len(live)])
         counted = "moe_stats" in self.cache
         both = torch.cat([tok_dev.long(), self.cache["moe_stats"]]) \
             if counted else tok_dev
@@ -130,7 +140,7 @@ class _BatcherBase:
             self._moe = (int(got[-2]), int(got[-1]))
         now = clock()
         self._sync_s += now - t0
-        self._book(live, toks[live], now)
+        self._book(live, toks[rows], now)
 
     def _book(self, lanes: List[int], toks: np.ndarray, now: float) -> None:
         """Each lane's token (on the host), stamped ``now``, the sync that
@@ -373,6 +383,14 @@ class PrefixBlockCache:
                     return
 
 
+# the rows a paged decode step runs: the decoding lanes, padded to the
+# least of these that holds them (or to every slot), so the step's products
+# cost about the live lanes, not every slot. Each count is a capture of its
+# own (set-up time), so they step by 4: below 32 rows a 7B step's products
+# cost about its weight read whatever the rows.
+DECODE_ROWS = tuple(32 << 2 * i for i in range(4))           # 32 .. 2048
+
+
 @dataclass
 class _LaneState:
     """Host-side bookkeeping for one decode lane of the paged batcher."""
@@ -403,6 +421,8 @@ class PagedContinuousBatcher(_BatcherBase):
         self.prefix = PrefixBlockCache(self.allocator) if prefix_sharing else None
         self.max_blocks_per_lane = kv_blocks_needed(engine.max_len, block_size)
         self._lane: List[Optional[_LaneState]] = [None] * slots
+        self._rows = tuple(n for n in DECODE_ROWS if n < slots) + (slots,)
+        self._rows_run = False
 
     # ---------------------------------------------------------------- state
     @property
@@ -533,13 +553,25 @@ class PagedContinuousBatcher(_BatcherBase):
             live = self._decode_lanes()
             if not live:
                 return 0
-            mask = np.zeros((self.slots,), bool)
-            mask[live] = True
+            if not self._rows_run:
+                self._run_rows()
+            n = next(r for r in self._rows if r >= len(live))
+            rows = np.full((n,), -1, np.int64)
+            rows[:len(live)] = live
+            lanes = _to_device(rows, self.device)
             logits, self.cache = self.engine.decode_paged(
-                self._last_tok[:, None], self.cache,
-                _to_device(mask, self.device))
-        self._emit(logits, live)
+                self._last_tok[:, None], self.cache, lanes)
+        self._emit(logits, live, lanes)
         return len(live)
+
+    def _run_rows(self) -> None:
+        """Each row count's decode step, run once on padding alone (it
+        changes no lane): with graphs, the first decode tick captures them
+        all, and no later tick captures."""
+        for n in self._rows:
+            pad = torch.full((n,), -1, dtype=torch.int64, device=self.device)
+            self.engine.decode_paged(self._last_tok[:, None], self.cache, pad)
+        self._rows_run = True
 
     def _retire(self, i: int) -> None:
         self.active[i].done = True

@@ -109,13 +109,15 @@ class InferenceEngine:
                                      lane=lane, n_valid=n_valid,
                                      backend=self.backend)
 
-    def decode_paged(self, tokens: torch.Tensor, cache, live: torch.Tensor):
+    def decode_paged(self, tokens: torch.Tensor, cache, lanes: torch.Tensor):
+        """One decode step of the (n,) int64 ``lanes``, -1 for padding
+        (``model.decode_step_paged``): logits (n, V), one capture per n."""
         return self._run("decode_paged", self._decode_paged,
-                         {"tokens": tokens, "live": live}, cache)
+                         {"tokens": tokens, "lanes": lanes}, cache)
 
-    def _decode_paged(self, cache, tokens, live):
+    def _decode_paged(self, cache, tokens, lanes):
         return M.decode_step_paged(self.params, self.cfg, tokens, cache,
-                                   live=live, backend=self.backend)
+                                   lanes=lanes, backend=self.backend)
 
     def lane_cache(self):
         """One single-lane cache for the batchers to prefill into and

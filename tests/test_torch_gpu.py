@@ -6,6 +6,7 @@ imports no JAX, so it runs on a machine that has only torch:
 
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py -q
 """
+import pathlib
 import re
 import sys
 
@@ -269,7 +270,7 @@ def test_flash_refuses_tiles_its_dtype_kernel_does_not_take():
 @pytest.mark.parametrize("D", [64, 128])
 @pytest.mark.parametrize("block_k", [32, 64, 128])
 def test_decode_split_edges_on_card(dtype, D, block_k):
-    """K2 v3 at kv_len on both sides of a split edge and at Smax, B = 5
+    """K2 v4 at kv_len on both sides of a split edge and at Smax, B = 5
     ragged, with a window of 64 and a softcap of 20, against its plain
     version."""
     _need_card()
@@ -312,7 +313,7 @@ def _paged_inputs(gen, dtype, kv_len, G, Hkv, D, span, max_blocks):
 @pytest.mark.parametrize("block_k", [32, 64, 128])
 @pytest.mark.parametrize("G,D", [(1, 128), (4, 64)])
 def test_paged_decode_split_edges_on_card(dtype, span, block_k, G, D):
-    """K3 v2 (split-KV through the block tables) at kv_len 0, on both sides
+    """K3 v3 (split-KV through the block tables) at kv_len 0, on both sides
     of a split edge and at the whole table, with a window of 71 that cuts
     splits and a softcap of 20, against its plain version on rows with a
     valid key; the kv_len 0 lane is 0."""
@@ -759,7 +760,7 @@ def test_int8_wrapper_raises_on_inputs_it_does_not_take():
 @pytest.mark.parametrize("block_k", [32, 64, 128])
 @pytest.mark.parametrize("G,D", [(1, 128), (4, 64), (4, 128)])
 def test_int8_split_edges_on_card(dtype, span, block_k, G, D):
-    """K4 v2 (K3's split-KV over int8 rows) at kv_len 0 and on both sides
+    """K4 v3 (K3's split-KV over int8 rows) at kv_len 0 and on both sides
     of a split edge, with a window of 71 that cuts splits and a softcap of
     20, against its plain version (and in float32 the gather oracle) on
     rows with a valid key; the kv_len 0 lane is 0."""
@@ -835,6 +836,155 @@ def test_int8_paged_decode_refuses_a_split_it_does_not_take():
         with pytest.raises(ValueError, match="block_k"):
             DA.paged_decode_attention_int8(*inp, block_k=bk)
     assert DA.paged_decode_attention_int8.launches == before
+
+
+# -------------------------------- K2, K3, K4: the work list at serving shape
+SERVE_SPAN, SERVE_TABLE, SERVE_WINDOW = 16, 384, 4096   # mistral-7b's pools
+
+
+def _serving_lanes(geometry, seed):
+    """kv_len of 128 lane slots as a mistral7b cell decodes them
+    (``chip_smoke.serving_lanes``): chat, 21 live lanes of 40-300 keys;
+    longprompt, 9 of 1,500-4,200 (past the window); the other slots dead
+    (kv_len 1, one of them 0), the live ones scattered among them."""
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
+    from chip_smoke import serving_lanes
+    return serving_lanes(torch, geometry, seed)
+
+
+def _fill_tables(gen, tables, kv_len, num_blocks):
+    """Each lane's live entries distinct random pool blocks (never the null
+    block 0), its dead entries 0; written in place."""
+    perm = torch.randperm(num_blocks - 1, generator=gen, device="cuda") + 1
+    tables.zero_()
+    used = 0
+    for b, n in enumerate(kv_len):
+        nb = -(-n // SERVE_SPAN)
+        tables[b, :nb] = perm[used:used + nb].to(torch.int32)
+        used += nb
+
+
+def _serving_call(kernel, gen, num_blocks):
+    """(call, plain) of K2, K3 or K4 at mistral-7b's serving shape (128
+    lanes, 32 query heads on 8 KV heads of 128, bf16, window 4096) on
+    random inputs: dense caches of 6,144 rows, or pools of ``num_blocks``
+    blocks of 16 read through 384-entry tables; and (kv_len, tables), for
+    the caller to fill."""
+    B, D, rows = 128, 128, SERVE_SPAN * SERVE_TABLE
+    q = _randn(gen, (B, 32, 1, D), torch.bfloat16)
+    kv = torch.ones(B, dtype=torch.int32, device="cuda")
+    tables = torch.zeros((B, SERVE_TABLE), dtype=torch.int32, device="cuda")
+    kw = dict(window=SERVE_WINDOW)
+    if kernel == "K2":
+        k, v = (_randn(gen, (B, 8, rows, D), torch.bfloat16) for _ in "kv")
+        args = (q, k, v, kv)
+        return (lambda: DA.decode_attention(*args, **kw),
+                lambda: DA.decode_attention_ref(*args, **kw), kv, tables)
+    shape = (num_blocks, 8, SERVE_SPAN, D)
+    if kernel == "K3":
+        kp, vp = (_randn(gen, shape, torch.bfloat16) for _ in "kv")
+        args = (q, kp, vp, tables, kv)
+        return (lambda: DA.paged_decode_attention(*args, **kw),
+                lambda: DA.paged_decode_attention_ref(*args, **kw), kv,
+                tables)
+    kp, vp = (torch.randint(-127, 128, shape, generator=gen, device="cuda")
+              .to(torch.int8) for _ in "kv")
+    ks, vs = (torch.rand(shape[:3] + (1,), generator=gen, device="cuda")
+              * 0.015 + 0.005 for _ in "kv")
+    args = (q, kp, vp, ks, vs, tables, kv)
+    return (lambda: DA.paged_decode_attention_int8(*args, **kw),
+            lambda: DA.paged_decode_attention_int8_ref(*args, **kw), kv,
+            tables)
+
+
+def _set_lanes(gen, kv, tables, kv_len, num_blocks):
+    kv.copy_(torch.tensor(kv_len, dtype=torch.int32))
+    _fill_tables(gen, tables, kv_len, num_blocks)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("geometry", ["chat", "longprompt"])
+@pytest.mark.parametrize("kernel", ["K3", "K2", "K4"])
+def test_work_list_at_the_serving_geometry_on_card(kernel, geometry):
+    """K3 (and K2 and K4, which share its split kernel) at the mistral7b
+    cells' decode shapes: 128 lane slots, most dead at kv_len 1, one at 0,
+    the live lanes scattered; against their plain versions on rows with a
+    key, and 0 on the lane without."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    kv_len = _serving_lanes(geometry, 3)
+    num_blocks = 1 + sum(-(-n // SERVE_SPAN) for n in kv_len)
+    call, plain, kv, tables = _serving_call(kernel, gen, num_blocks)
+    _set_lanes(gen, kv, tables, kv_len, num_blocks)
+    got, want = call(), plain()
+    torch.cuda.synchronize()
+    rows = kv > 0
+    torch.testing.assert_close(got[rows].float(), want[rows].float(),
+                               atol=2e-2, rtol=2e-2)
+    assert torch.count_nonzero(got[~rows]) == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["K3", "K2", "K4"])
+def test_work_list_follows_the_replay_on_card(kernel):
+    """One call captured into a CUDA graph at chat's lanes, then replayed
+    after kv_len and the tables were rewritten in place: longprompt's lanes
+    (several times the items), every lane dead, chat's again. Each replay
+    equals the plain version on the replay's inputs, and the eager call on
+    them bit for bit: the grid is fixed, the work list the replay's."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    lanes = [_serving_lanes("chat", 5), _serving_lanes("longprompt", 6),
+             [1] * 128, _serving_lanes("chat", 7)]
+    num_blocks = 1 + max(sum(-(-n // SERVE_SPAN) for n in kv_len)
+                         for kv_len in lanes)
+    call, plain, kv, tables = _serving_call(kernel, gen, num_blocks)
+    _set_lanes(gen, kv, tables, lanes[0], num_blocks)
+    call()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out = call()
+    for kv_len in lanes:
+        _set_lanes(gen, kv, tables, kv_len, num_blocks)
+        g.replay()
+        torch.cuda.synchronize()
+        rows = kv > 0
+        torch.testing.assert_close(out[rows].float(), plain()[rows].float(),
+                                   atol=2e-2, rtol=2e-2)
+        assert torch.count_nonzero(out[~rows]) == 0
+        assert torch.equal(out, call())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["K2", "K3"])
+def test_work_list_over_more_lanes_than_a_list_on_card(kernel):
+    """300 lanes: the split kernel lists them 128 at a time, each list's
+    items numbered after the last's; kv_len 0, 1 and up to the
+    cache's extent, a window of 50, against the plain versions."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    g = torch.Generator().manual_seed(8)
+    kv_len = torch.randint(0, 161, (300,), generator=g).tolist()
+    kv_len[:3], kv_len[-3:] = [0, 1, 160], [160, 1, 0]
+    for kw in ({}, {"window": 50}):
+        if kernel == "K2":
+            q = _randn(gen, (300, 8, 1, 64), torch.float32)
+            k, v = (_randn(gen, (300, 2, 160, 64), torch.float32)
+                    for _ in "kv")
+            kv = torch.tensor(kv_len, dtype=torch.int32, device="cuda")
+            got = DA.decode_attention(q, k, v, kv, block_k=32, **kw)
+            want = DA.decode_attention_ref(q, k, v, kv, **kw)
+        else:
+            q, kp, vp, tables, kv = _paged_inputs(
+                gen, torch.float32, kv_len, 4, 2, 64, 16, 10)
+            got = DA.paged_decode_attention(q, kp, vp, tables, kv,
+                                            block_k=32, **kw)
+            want = DA.paged_decode_attention_ref(q, kp, vp, tables, kv, **kw)
+        rows = kv > 0
+        torch.testing.assert_close(got[rows], want[rows], atol=2e-5,
+                                   rtol=2e-5)
+        assert torch.count_nonzero(got[~rows]) == 0
 
 
 # ---------------------------------------------------------- KV handoff
@@ -1532,6 +1682,33 @@ def test_paged_batcher_replays_match_the_eager_steps_on_card(arch, kv_quant,
 
 
 @pytest.mark.gpu
+def test_paged_batcher_row_counts_capture_and_replay_on_card():
+    """40 slots: each decode tick replays the step captured at 32 or 40
+    rows (``DECODE_ROWS``; both captured at the first decode tick) over its
+    decoding lanes, and serves the eager batcher's tokens."""
+    _need_card()
+    import numpy as np
+    from repro_torch.serving.batching import PagedContinuousBatcher, Request
+    eng = _graph_engines("smollm-360m")
+    rng = np.random.default_rng(8)
+    prompts = [rng.integers(0, eng[True].cfg.vocab_size, size=m)
+               for m in (6, 19, 11, 7, 14, 9, 17, 6, 12, 8, 15, 10) * 3]
+    out = {}
+    for g, e in eng.items():
+        cb = PagedContinuousBatcher(e, slots=40, num_blocks=240,
+                                    block_size=4, chunk=8)
+        assert cb._rows == (32, 40)
+        reqs = [Request(i, p, max_new_tokens=6)
+                for i, p in enumerate(prompts)]
+        for r in reqs:
+            cb.submit(r)
+        cb.run()
+        out[g] = [r.out_tokens for r in reqs]
+    assert out[True] == out[False]
+    assert eng[True].graphs.captures == 3 and eng[True].graphs.replays > 10
+
+
+@pytest.mark.gpu
 def test_a_new_cache_is_a_new_capture_on_card():
     """Two dense batchers on one engine: a capture each (the graph reads
     its cache at its addresses); generate captures per call."""
@@ -1784,7 +1961,6 @@ def test_padded_prefill_captures_and_replays_on_card():
     capture and a replay on another prompt each give the logits and states
     of the eager prefill at the prompt's own length, and a replay counts
     the kernels its capture ran (K5 three times, K7 twice)."""
-    import pathlib
     from repro_torch.configs.base import ModelConfig
     from repro_torch.kernels import moe_experts as ME
     from repro_torch.serving.engine import InferenceEngine

@@ -231,6 +231,91 @@ def test_paged_batcher_tokens_are_the_eager_ones(family, kv_quant):
     assert runner.replays > 10
 
 
+@pytest.mark.parametrize("kv_quant", [False, True], ids=["float", "int8"])
+@pytest.mark.parametrize("family", ["dense", "moe"])
+def test_paged_decode_runs_the_live_lanes_padded_to_a_row_count(family,
+                                                               kv_quant):
+    """40 slots: a decode tick runs its decoding lanes alone, padded with
+    -1 to 32 or 40 rows (``DECODE_ROWS``), each count captured once, at
+    the first decode tick; ticks of both counts occur. The tokens equal the
+    eager engine's and those of the batcher run at 40 rows every tick."""
+    eng = _engines(FAMILIES[family], kv_quant=kv_quant)
+    prompts = _prompts(eng[True].cfg, lens=(6, 19, 11, 7, 14, 9, 17, 6, 12,
+                                            8, 15, 10) * 3)
+    got, rows = {}, {}
+    for name, e, fixed in (("graphs", eng[True], False),
+                           ("eager", eng[False], False),
+                           ("all rows", eng[False], True)):
+        cb = PagedContinuousBatcher(e, slots=40, num_blocks=240,
+                                    block_size=4, chunk=8)
+        assert cb._rows == (32, 40)
+        if fixed:
+            cb._rows = (40,)
+        seen = []
+        inner = e.decode_paged
+
+        def decode(tokens, cache, live, inner=inner, seen=seen):
+            seen.append((live.shape[0], int((live >= 0).sum())))
+            return inner(tokens, cache, live)
+        e.decode_paged = decode
+        try:
+            got[name] = _run(cb, prompts)
+        finally:
+            del e.decode_paged
+        rows[name] = seen
+    assert got["graphs"] == got["eager"] == got["all rows"]
+    # the first decode tick runs every count on padding alone, first
+    assert rows["graphs"][:2] == [(32, 0), (40, 0)]
+    served = rows["graphs"][2:]
+    assert all(n == (32 if k <= 32 else 40) for n, k in served)
+    assert {n for n, _ in served} == {32, 40}
+    runner = eng[True].graphs
+    # one prefill_chunk and one decode_paged capture per row count
+    assert runner.captures == 3 and len(runner) == 3
+
+
+def test_decode_on_listed_lanes_leaves_the_others():
+    """``decode_step_paged(lanes=)``: rows for lanes [3, 0] and two of
+    padding against the masked step over all four lanes (lanes 1 and 2 not
+    live): the same logits rows and K/V; ``pos`` advances on lanes 3 and 0
+    alone, and no pool row outside theirs (and the null block) changes."""
+    cfg, params = _params(FAMILIES["dense"])
+    gen = torch.Generator().manual_seed(5)
+    cache = M.init_paged_cache(cfg, 4, 20, 4, max_blocks_per_lane=4)
+    tables = torch.tensor([[3, 7, 1, 9], [2, 5, 11, 0], [4, 6, 0, 0],
+                           [8, 10, 12, 13]], dtype=torch.int32)
+    cache["block_tables"].copy_(tables)
+    cache["pos"].copy_(torch.tensor([9, 5, 0, 13], dtype=torch.int32))
+    for k in ("kp", "vp"):
+        cache[k].copy_(torch.randn(cache[k].shape, generator=gen))
+    toks = torch.randint(0, cfg.vocab_size, (4, 1), generator=gen,
+                         dtype=torch.int32)
+    masked = {k: v.clone() for k, v in cache.items()}
+    want, _ = M.decode_step_paged(params, cfg, toks, masked,
+                                  live=torch.tensor([True, False, False,
+                                                     True]))
+    listed = {k: v.clone() for k, v in cache.items()}
+    got, _ = M.decode_step_paged(params, cfg, toks, listed,
+                                 lanes=torch.tensor([3, 0, -1, -1]))
+    assert got.shape == (4, want.shape[1])
+    torch.testing.assert_close(got[:2], want[[3, 0]], atol=1e-5, rtol=1e-5)
+    assert listed["pos"].tolist() == [10, 5, 0, 14]
+    assert torch.equal(listed["pos"], masked["pos"])
+    for k in ("kp", "vp"):
+        torch.testing.assert_close(listed[k][:, 1:], masked[k][:, 1:],
+                                   atol=1e-6, rtol=1e-6)
+        # only lane 0's row 9 (block 1, row 1) and lane 3's row 13 (block
+        # 13, row 1) were written outside the null block
+        diff = (listed[k][:, 1:] != cache[k][:, 1:]).any(-1).any(0)
+        assert sorted(map(tuple, diff.nonzero().tolist())) == \
+            [(blk - 1, h, 1) for blk in (1, 13)
+             for h in range(cfg.num_kv_heads)]
+    with pytest.raises(ValueError, match="live or lanes"):
+        M.decode_step_paged(params, cfg, toks, listed,
+                            live=torch.ones(4, dtype=torch.bool),
+                            lanes=torch.tensor([0]))
+
+
 def _router(eng, policy):
     cfg = eng.cfg
     if policy == "disaggregated":
